@@ -1,0 +1,42 @@
+"""Image gradients (counterpart of ``tadataka_tpu/core/gradients.py``):
+zero-border Sobel and np.gradient, both as shifted adds.  No convolution:
+a float32 convolution on the card would run through cuDNN in TF32."""
+
+import torch
+import torch.nn.functional as F
+
+
+def _sobel_x_valid(image):
+    """VALID-region Sobel d/dx via the separable [1,2,1]^T (x) [-1,0,1]."""
+    dx = image[:, 2:] - image[:, :-2]
+    return dx[:-2] + 2.0 * dx[1:-1] + dx[2:]
+
+
+def _sobel_y_valid(image):
+    dy = image[2:, :] - image[:-2, :]
+    return dy[:, :-2] + 2.0 * dy[:, 1:-1] + dy[:, 2:]
+
+
+def sobel_x(image):
+    """d/dx Sobel (unnormalized, 4x the central difference), zero border
+    (the JAX package's ``mode="zero"``)."""
+    return F.pad(_sobel_x_valid(image), (1, 1, 1, 1))
+
+
+def sobel_y(image):
+    return F.pad(_sobel_y_valid(image), (1, 1, 1, 1))
+
+
+def _central_diff(a, dim):
+    """Central differences along ``dim`` with one-sided edges."""
+    a = a.movedim(dim, 0)
+    out = torch.empty_like(a)
+    out[1:-1] = (a[2:] - a[:-2]) / 2.0
+    out[0] = a[1] - a[0]
+    out[-1] = a[-1] - a[-2]
+    return out.movedim(0, dim)
+
+
+def np_gradient_2d(image):
+    """np.gradient for 2-D images, returned as (DX, DY)."""
+    return _central_diff(image, 1), _central_diff(image, 0)

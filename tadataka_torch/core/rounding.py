@@ -1,0 +1,44 @@
+"""Arithmetic that rounds the same on the CPU and on the card.
+
+Three PyTorch forms differ between devices in the last bit, and on the
+mapping path a last bit can move an SSD argmin by a plane:
+
+- ``tensor / python_number`` on a CUDA tensor multiplies by the
+  reciprocal (126 of the 256 values u8 / 255 then differ from the CPU's
+  true quotient).  :func:`as_divisor` makes the divisor a 0-d tensor on
+  the dividend's device, which both devices divide by exactly.
+- ``A @ B`` goes to BLAS or cuBLAS, which fuse multiply-adds and order
+  their sums their own way.  :func:`matmul_small` sums the products of
+  small matrices left to right, each rounded on its own.
+- ``torch.sqrt`` on the CPU (its vectorized float32 root) is one ulp off
+  on about 0.6% of inputs; the card's is correctly rounded.
+  :func:`sqrt` takes the CPU's root in float64, which rounds to the
+  correctly rounded float32 root.
+
+Sums over many elements are written out in a fixed order where they
+occur (``vo/dvo.py``).
+"""
+
+import torch
+
+
+def as_divisor(value, like):
+    """``value`` as a 0-d tensor of ``like``'s dtype and device."""
+    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def matmul_small(A, B):
+    """A (..., n, k) @ B (..., k, m) for a small k, as broadcast products
+    summed left to right: each product and each sum rounds on its own,
+    so every device gives the same bits."""
+    out = A[..., :, :1] * B[..., :1, :]
+    for i in range(1, A.shape[-1]):
+        out = out + A[..., :, i:i + 1] * B[..., i:i + 1, :]
+    return out
+
+
+def sqrt(x):
+    """Correctly rounded float32 square root on every device."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)

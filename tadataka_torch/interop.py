@@ -1,0 +1,63 @@
+"""Carry parameters, frames, poses and VO state between numpy and the
+port.
+
+Every ``*_from_numpy`` function takes array-likes (anything
+``np.asarray`` accepts, such as the fields of the JAX package's objects)
+and builds the port's object on ``device``; :func:`to_numpy` goes back.
+Float fields become float32 tensors, integer maps int32.
+"""
+
+import numpy as np
+import torch
+
+from tadataka_torch.apps.semi_dense_vo import SemiDenseVOState
+from tadataka_torch.camera import CameraParameters
+from tadataka_torch.core.pose import Pose
+from tadataka_torch.vo.semi_dense.frame import SemiDenseFrame
+from tadataka_torch.vo.semi_dense.params import SemiDenseParams
+
+
+def tensor(a, device="cpu", dtype=torch.float32):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def params_from_numpy(fields, device="cpu"):
+    """SemiDenseParams from its six fields in order (min_inv_depth,
+    max_inv_depth, geo_coeff, photo_coeff, ref_step_size, min_gradient)."""
+    return SemiDenseParams(*(tensor(v, device) for v in fields))
+
+
+def camera_from_numpy(focal_length, offset, device="cpu"):
+    return CameraParameters(tensor(focal_length, device),
+                            tensor(offset, device))
+
+
+def frame_from_numpy(focal_length, offset, image, transform_wf,
+                     device="cpu"):
+    """A SemiDenseFrame, or a stacked history when every field carries a
+    leading refframe axis."""
+    return SemiDenseFrame(tensor(focal_length, device), tensor(offset, device),
+                          tensor(image, device), tensor(transform_wf, device))
+
+
+def pose_from_numpy(R, t, device="cpu"):
+    return Pose(tensor(R, device), tensor(t, device))
+
+
+def state_from_numpy(pose_R, pose_t, depth_map, variance_map, age_map,
+                     flag_map=None, device="cpu"):
+    return SemiDenseVOState(
+        pose_from_numpy(pose_R, pose_t, device), tensor(depth_map, device),
+        tensor(variance_map, device), tensor(age_map, device, torch.int32),
+        None if flag_map is None else tensor(flag_map, device, torch.int32))
+
+
+def to_numpy(obj):
+    """Tensors -> numpy arrays, through (named) tuples and lists."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_numpy(x) for x in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_numpy(x) for x in obj)
+    return obj

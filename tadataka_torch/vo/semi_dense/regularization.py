@@ -1,0 +1,28 @@
+"""3x3 inverse-variance-weighted depth smoothing over SUCCESS pixels
+(counterpart of ``tadataka_tpu/vo/semi_dense/regularization.py``)."""
+
+import torch
+import torch.nn.functional as F
+
+from tadataka_torch.flags import Flag
+from tadataka_torch.vo.semi_dense.estimator import safe_invert
+
+
+def _box3(x):
+    """SAME zero-padded 3x3 box sum as shifted adds (no convolution)."""
+    p = F.pad(x, (1, 1))
+    h = p[:, :-2] + p[:, 1:-1] + p[:, 2:]
+    p2 = F.pad(h, (0, 0, 1, 1))
+    return p2[:-2] + p2[1:-1] + p2[2:]
+
+
+def regularize(depth_map, variance_map, flag_map):
+    """Weighted 3x3 smoothing of inverse depth; non-SUCCESS pixels keep
+    their value and contribute nothing."""
+    success = (flag_map == int(Flag.SUCCESS)).to(depth_map.dtype)
+    inv_depth = safe_invert(depth_map)
+    inv_var = safe_invert(variance_map) * success
+    numerator = _box3(inv_depth * inv_var)
+    denominator = _box3(inv_var)
+    smoothed = safe_invert(numerator / torch.clamp(denominator, min=1e-12))
+    return torch.where(denominator > 0, smoothed, depth_map)

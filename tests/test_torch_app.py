@@ -1,0 +1,260 @@
+"""The port's SemiDenseVO against the JAX app on the CPU, the renderer
+against the JAX renderer, and a run of the port with JAX made
+unimportable.
+
+The JAX app runs its TPU configuration here too: tent warps with
+budgets 12-24 and the tap-grid propagation.  The port runs gather warps
+and the scatter propagation, which those forms equal within their
+budgets; lanes over a budget differ.  And where the SSD error curve is
+flat, an ulp moves the window argmin by a plane (~18% of the inverse
+depth on these grids).  So maps are compared by the share of pixels
+that agree and by quantiles of the relative depth difference on pixels
+that are SUCCESS on both sides.
+"""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tadataka_tpu.apps import SemiDenseVO as JSemiDenseVO
+from tadataka_tpu.camera import CameraModel as JCameraModel
+from tadataka_tpu.camera import CameraParameters as JCameraParameters
+from tadataka_tpu.core.pose import Pose as JPose
+from tadataka_tpu.dataset.synthetic import (
+    multi_plane_scene as jmulti_plane_scene,
+    render_plane_scene as jrender_plane_scene)
+from tadataka_tpu.vo.semi_dense import SemiDenseParams as JParams
+
+from tadataka_torch import interop
+from tadataka_torch.apps import SemiDenseVO
+from tadataka_torch.camera import CameraModel
+from tadataka_torch.dataset import render_plane_scene
+from tadataka_torch.dataset.synthetic import MULTI_PLANES
+
+H, W = 80, 100
+FOCAL = (80.0, 80.0)
+N_FRAMES = 3          # init, the bootstrap frame, one steady-state step
+VO_ARGS = dict(default_depth=8.0, default_variance=1.0,
+               uncertainty_bias=0.01, depth_range=(2.0, 50.0),
+               n_coarse_to_fine=4, history_size=4)
+
+
+class PlanLog:
+    def __init__(self):
+        self.frames = []
+
+    def log_frame(self, frame_index, **values):
+        self.frames.append((frame_index, values))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Both apps over the first frames of the JAX app test's sequence."""
+    poses = [JPose.from_rotvec(jnp.float32([0.0, 0.002 * i, 0.0]),
+                               jnp.float32([0.18 * i, 0.01 * i, 0.01 * i]))
+             for i in range(N_FRAMES)]
+    ds = jmulti_plane_scene(n_frames=N_FRAMES, image_shape=(H, W),
+                            focal_length=FOCAL, poses=poses)
+    frames = [ds[i] for i in range(N_FRAMES)]
+    images = [np.asarray(f.image) for f in frames]
+    jcam = JCameraParameters.create(FOCAL, (W / 2, H / 2))
+    jparams = JParams.create(2.0, 50.0, ref_step_size=0.002,
+                             min_gradient=0.01)
+    T10 = frames[1].pose.inv() * frames[0].pose
+
+    jlog, log = PlanLog(), PlanLog()
+    jvo = JSemiDenseVO(jcam, params=jparams, metrics=jlog, **VO_ARGS)
+    jvo.initial_pose_fn = lambda image0, image1: T10
+    jstates = [jvo.estimate(image) for image in images]
+
+    vo = SemiDenseVO(interop.camera_from_numpy(jcam.focal_length,
+                                               jcam.offset),
+                     params=interop.params_from_numpy(jparams), metrics=log,
+                     **VO_ARGS)
+    pT10 = interop.pose_from_numpy(T10.R, T10.t)
+    vo.initial_pose_fn = lambda image0, image1: pT10
+    states = [interop.to_numpy(vo.estimate(image)) for image in images]
+    return states, [as_numpy(s) for s in jstates], log.frames, jlog.frames
+
+
+def as_numpy(x):
+    """JAX arrays -> numpy, through named tuples."""
+    if isinstance(x, tuple):
+        return type(x)(*map(as_numpy, x))
+    return None if x is None else np.asarray(x)
+
+
+def pose_T(state):
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = state.pose_wc.R, state.pose_wc.t
+    return T
+
+
+def test_app_plans_equal(runs):
+    """The planner sees the same host poses: the same plan every frame."""
+    _, _, log, jlog = runs
+    assert [i for i, _ in log] == [i for i, _ in jlog] == [1, 2]
+    for (_, plan), (_, jplan) in zip(log, jlog):
+        for key in ("plan_path", "plan_n_planes", "plan_max_budget"):
+            assert plan[key] == jplan[key], key
+        assert plan["plan_path"] == "tent"
+
+
+def test_app_initial_state_equal(runs):
+    """The random initial depth map is the same numpy draw on both sides."""
+    states, jstates, _, _ = runs
+    np.testing.assert_array_equal(states[0].depth_map, jstates[0].depth_map)
+    np.testing.assert_array_equal(states[0].variance_map,
+                                  jstates[0].variance_map)
+
+
+def test_app_poses(runs):
+    """The bootstrap frame's pose is the given one on both sides (equal);
+    the tracked frame's pose agrees within 5e-3 (its DVO runs against
+    maps that differ as described above; 2.1e-3 measured)."""
+    states, jstates, _, _ = runs
+    np.testing.assert_allclose(pose_T(states[1]), pose_T(jstates[1]),
+                               atol=1e-6)
+    np.testing.assert_allclose(pose_T(states[2]), pose_T(jstates[2]),
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("frame", [1, 2])
+def test_app_maps(runs, frame):
+    """Flags agree on >= 98% of pixels and ages on >= 98%; on pixels
+    SUCCESS on both sides the relative depth difference has median
+    <= 2e-3 and 90th percentile <= 5e-2 (measured: 6e-4 / 7e-3 on
+    frame 1, 1.3e-3 / 1.4e-2 on frame 2)."""
+    states, jstates, _, _ = runs
+    s, j = states[frame], jstates[frame]
+    assert np.mean(s.flag_map == j.flag_map) >= 0.98
+    assert np.mean(s.age_map == j.age_map) >= 0.98
+    both = (s.flag_map == 0) & (j.flag_map == 0)
+    assert both.mean() > 0.2
+    rel = np.abs(s.depth_map - j.depth_map)[both] / j.depth_map[both]
+    q50, q90 = np.quantile(rel, [0.5, 0.9])
+    assert q50 <= 2e-3 and q90 <= 5e-2, (q50, q90)
+    assert np.all(np.isfinite(s.depth_map)) and np.all(s.variance_map > 0)
+
+
+def test_interop_state_round_trip(runs):
+    """A JAX app state through ``interop.state_from_numpy`` and back is
+    unchanged: float maps float32, age and flags int32."""
+    _, jstates, _, _ = runs
+    j = jstates[2]
+    state = interop.state_from_numpy(j.pose_wc.R, j.pose_wc.t, j.depth_map,
+                                     j.variance_map, j.age_map, j.flag_map)
+    assert state.age_map.dtype == state.flag_map.dtype == torch.int32
+    back = interop.to_numpy(state)
+    for name in ("depth_map", "variance_map", "age_map", "flag_map"):
+        np.testing.assert_array_equal(getattr(back, name), getattr(j, name))
+    np.testing.assert_array_equal(pose_T(back), pose_T(j))
+
+
+def small_port_run(prefetch):
+    """Three 40x56 frames through the port on the CPU; returns the
+    states and the app."""
+    from tadataka_torch.camera import CameraParameters
+    from tadataka_torch.core.pose import Pose
+    from tadataka_torch.dataset import multi_plane_scene
+    from tadataka_torch.vo.semi_dense import SemiDenseParams
+    poses = [Pose.from_rotvec(torch.tensor([0.0, 0.002 * i, 0.0]),
+                              torch.tensor([0.18 * i, 0.01 * i, 0.0]))
+             for i in range(3)]
+    ds = multi_plane_scene(3, (40, 56), (40.0, 40.0), poses)
+    vo = SemiDenseVO(CameraParameters.create((40.0, 40.0), (28.0, 20.0)),
+                     params=SemiDenseParams.create(2.0, 50.0,
+                                                   ref_step_size=0.002,
+                                                   min_gradient=0.01),
+                     **dict(VO_ARGS, n_coarse_to_fine=3, history_size=3))
+    vo.initial_pose_fn = lambda a, b: ds[1].pose.inv() * ds[0].pose
+    frames = [ds[i] for i in range(3)]
+    states = []
+    for frame in frames:
+        if prefetch:
+            vo.prefetch(frame)
+        states.append(interop.to_numpy(vo.estimate(frame)))
+    return states, vo
+
+
+def test_app_prefetch_and_finish():
+    """``prefetch`` changes nothing but when the image is prepared; the
+    host pose lags the device until ``finish`` drains it, and then equals
+    the device pose."""
+    plain, vo_plain = small_port_run(prefetch=False)
+    fetched, vo = small_port_run(prefetch=True)
+    assert not vo._prepared
+    for a, b in zip(plain, fetched):
+        np.testing.assert_array_equal(a.depth_map, b.depth_map)
+        np.testing.assert_array_equal(pose_T(a), pose_T(b))
+    np.testing.assert_allclose(vo.finish(), pose_T(fetched[-1]), atol=1e-5)
+    np.testing.assert_allclose(vo.pose_wc_host, vo_plain.finish(), atol=0)
+
+
+def test_app_refuses_scatter_update():
+    """The scattered estimator is not ported: asking for it raises and
+    names the ROADMAP item instead of running another path."""
+    cam = interop.camera_from_numpy((80.0, 80.0), (50.0, 40.0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SemiDenseVO(cam, depth_update="scatter")
+
+
+def test_renderer_matches():
+    """Image and depth of the three-plane scene within float32 noise."""
+    jpose = JPose.from_rotvec(jnp.float32([0.01, 0.02, -0.005]),
+                              jnp.float32([0.3, -0.1, 0.2]))
+    jcam = JCameraParameters.create((60.0, 62.0), (33.0, 24.5))
+    jimage, jdepth = jrender_plane_scene(JCameraModel.create(jcam), jpose,
+                                         (48, 64), planes=MULTI_PLANES)
+    cm = CameraModel.create(interop.camera_from_numpy(jcam.focal_length,
+                                                      jcam.offset))
+    image, depth = render_plane_scene(
+        cm, interop.pose_from_numpy(jpose.R, jpose.t), (48, 64),
+        planes=MULTI_PLANES)
+    np.testing.assert_allclose(image.numpy(), np.asarray(jimage), atol=2e-5)
+    np.testing.assert_allclose(depth.numpy(), np.asarray(jdepth), rtol=2e-5)
+
+
+def test_port_runs_without_jax():
+    """``import tadataka_torch`` and a CPU estimate with jax unimportable."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["tadataka_tpu"] = None
+        import torch
+        from tadataka_torch.apps import SemiDenseVO
+        from tadataka_torch.camera import CameraParameters
+        from tadataka_torch.core.pose import Pose
+        from tadataka_torch.dataset import multi_plane_scene
+        from tadataka_torch.vo.semi_dense import SemiDenseParams
+        poses = [Pose.from_rotvec(torch.tensor([0.0, 0.002 * i, 0.0]),
+                                  torch.tensor([0.18 * i, 0.01 * i, 0.0]))
+                 for i in range(3)]
+        ds = multi_plane_scene(3, (40, 56), (40.0, 40.0), poses)
+        vo = SemiDenseVO(CameraParameters.create((40.0, 40.0), (28.0, 20.0)),
+                         params=SemiDenseParams.create(
+                             2.0, 50.0, ref_step_size=0.002,
+                             min_gradient=0.01),
+                         default_depth=8.0, default_variance=1.0,
+                         uncertainty_bias=0.01, depth_range=(2.0, 50.0),
+                         n_coarse_to_fine=3, history_size=3)
+        vo.initial_pose_fn = lambda a, b: ds[1].pose.inv() * ds[0].pose
+        for i in range(3):
+            state = vo.estimate(ds[i])
+        assert bool(torch.isfinite(state.depth_map).all())
+        assert not any(m == "jax" or m.startswith(("jax.", "tadataka_tpu"))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parent.parent)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

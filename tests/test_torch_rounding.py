@@ -1,0 +1,172 @@
+"""The port's device-invariant arithmetic (``tadataka_torch/core/rounding.py``
+and the fixed-order sums of ``vo/dvo.py`` and ``propagation.py``): each
+helper against a numpy statement of the rounding it promises, and, on a
+machine with a card, the CPU and the card giving the same bits.
+
+This file imports no JAX, so it runs on a machine with a card without
+``tests/conftest.py`` (which imports JAX):
+
+    python -m pytest --noconftest tests/test_torch_rounding.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tadataka_torch.core.rounding import as_divisor, matmul_small, sqrt
+from tadataka_torch.vo.dvo import _triangle_weights, fixed_order_sum
+from tadataka_torch.vo.dvo import resize_image, resize_taps
+from tadataka_torch.vo.semi_dense.propagation import scatter_add
+
+
+@pytest.fixture
+def gen():
+    return np.random.default_rng(20261016)
+
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.parametrize("scale", [1e-6, 1e-3, 1.0, 1e4])
+def test_sqrt_is_correctly_rounded(gen, scale):
+    """Equal to the float64 root rounded to float32 (the correctly rounded
+    float32 root) on 200k inputs of each magnitude."""
+    x = (gen.random(200_000) * scale).astype(np.float32)
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(sqrt(torch.from_numpy(x)).numpy(), want)
+
+
+def test_division_by_as_divisor_is_the_true_quotient():
+    """u8 / 255 through ``as_divisor`` is numpy's float32 true quotient on
+    every one of the 256 values."""
+    x = torch.arange(256, dtype=torch.float32)
+    want = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    np.testing.assert_array_equal((x / as_divisor(255.0, x)).numpy(), want)
+
+
+@pytest.mark.parametrize("shapes", [((3, 3), (3, 3)), ((4, 4), (4, 4)),
+                                    ((7, 3), (3, 3)), ((2, 3, 3), (3, 1))])
+def test_matmul_small_sums_left_to_right(gen, shapes):
+    """Every product rounded to float32, then summed left to right in
+    float32: numpy's statement of it, bit for bit."""
+    a = gen.normal(size=shapes[0]).astype(np.float32)
+    b = gen.normal(size=shapes[1]).astype(np.float32)
+    want = a[..., :, 0:1] * b[..., 0:1, :]
+    for i in range(1, a.shape[-1]):
+        want = want + a[..., :, i:i + 1] * b[..., i:i + 1, :]
+    got = matmul_small(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, a @ b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 4800])
+def test_fixed_order_sum_halves_pairwise(gen, n):
+    """Zero-padded to a power of two and halved pairwise, in float32 —
+    numpy's statement of it bit for bit — and within float32 rounding of
+    the float64 sum."""
+    x = gen.normal(size=(3, n)).astype(np.float32)
+    want = np.pad(x, ((0, 0), (0, (1 << (n - 1).bit_length()) - n)))
+    while want.shape[-1] > 1:
+        half = want.shape[-1] // 2
+        want = want[:, :half] + want[:, half:]
+    got = fixed_order_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want[:, 0])
+    np.testing.assert_allclose(got, x.astype(np.float64).sum(-1),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_scatter_add_sums_in_source_order(gen):
+    """Each cell's terms added in source order, as a serial loop does;
+    cells with one, two and many terms."""
+    index = gen.integers(0, 50, 400)
+    values = gen.normal(size=400).astype(np.float32)
+    want = np.zeros(60, np.float32)
+    for i, v in zip(index, values):
+        want[i] = np.float32(want[i] + v)
+    got = scatter_add(60, torch.from_numpy(index), torch.from_numpy(values))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("sizes", [(480, 320), (480, 95), (640, 427),
+                                   (80, 36), (100, 30)])
+def test_resize_taps_hold_the_dense_weights(sizes):
+    """The taps, scattered back, are the dense triangle weights exactly;
+    each output sample's taps run in increasing input order."""
+    n_in, n_out = sizes
+    index, weight = resize_taps(n_in, n_out, "cpu")
+    dense = torch.zeros((n_in, n_out))
+    dense.scatter_add_(0, index, weight)
+    assert torch.equal(dense, _triangle_weights(n_in, n_out))
+    nonzero = weight != 0
+    steps = torch.diff(index, dim=0)
+    assert bool((steps[nonzero[1:]] > 0).all())
+
+
+def test_resize_image_matches_the_dense_products(gen):
+    """The tap sums against the two dense float64 products."""
+    image = gen.random((48, 64)).astype(np.float32)
+    wy = _triangle_weights(48, 32).double().numpy()
+    wx = _triangle_weights(64, 43).double().numpy()
+    got = resize_image(torch.from_numpy(image), (32, 43)).numpy()
+    np.testing.assert_allclose(got, wy.T @ image @ wx, rtol=0, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_helpers_give_the_same_bits_on_the_card(gen):
+    """sqrt, as_divisor, matmul_small, fixed_order_sum, scatter_add and
+    resize_image: the card's result equals the CPU's bit for bit."""
+    need_card()
+    x = torch.from_numpy((gen.random(100_000) * 1e-2).astype(np.float32))
+    u8 = torch.arange(256, dtype=torch.float32)
+    a = torch.from_numpy(gen.normal(size=(5, 4, 4)).astype(np.float32))
+    index = torch.from_numpy(gen.integers(0, 500, 5000))
+    values = torch.from_numpy(gen.normal(size=5000).astype(np.float32))
+    image = torch.from_numpy(gen.random((480, 640)).astype(np.float32))
+    cases = [
+        (sqrt, (x,)),
+        (lambda v: v / as_divisor(255.0, v), (u8,)),
+        (matmul_small, (a, a)),
+        (fixed_order_sum, (values.reshape(5, 1000),)),
+        (lambda i, v: scatter_add(500, i, v), (index, values)),
+        (lambda im: resize_image(im, (95, 127)), (image,)),
+    ]
+    for fn, args in cases:
+        cpu = fn(*args)
+        card = fn(*(arg.cuda() for arg in args))
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_app_gives_the_same_bits_on_the_card():
+    """Four 60x80 frames through SemiDenseVO on the CPU and on the card:
+    the same poses and maps, bit for bit."""
+    need_card()
+    from tadataka_torch.apps import SemiDenseVO
+    from tadataka_torch.camera import CameraParameters
+    from tadataka_torch.core.pose import Pose
+    from tadataka_torch.dataset import multi_plane_scene
+    from tadataka_torch.vo.semi_dense import SemiDenseParams
+    poses = [Pose.from_rotvec(torch.tensor([0.0, 0.002 * i, 0.0]),
+                              torch.tensor([0.15 * i, 0.01 * i, 0.02 * i]))
+             for i in range(4)]
+    ds = multi_plane_scene(4, (60, 80), (60.0, 60.0), poses)
+    runs = []
+    for device in ("cpu", "cuda"):
+        vo = SemiDenseVO(
+            CameraParameters.create((60.0, 60.0), (40.0, 30.0)),
+            params=SemiDenseParams.create(2.0, 50.0, ref_step_size=0.002,
+                                          min_gradient=0.01),
+            default_depth=8.0, default_variance=1.0, uncertainty_bias=0.01,
+            depth_range=(2.0, 50.0), n_coarse_to_fine=3, history_size=3,
+            device=device)
+        vo.initial_pose_fn = lambda a, b: ds[1].pose.inv() * ds[0].pose
+        runs.append([vo.estimate(ds[i]) for i in range(4)])
+    for cpu, card in zip(*runs):
+        for a, b in ((cpu.pose_wc.R, card.pose_wc.R),
+                     (cpu.pose_wc.t, card.pose_wc.t),
+                     (cpu.depth_map, card.depth_map),
+                     (cpu.variance_map, card.variance_map)):
+            assert torch.equal(a, b.cpu())

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Profile the slice of chip_smoke.py phase 5 on one CUDA card.
+
+    python3 tools/profile_slice.py [--profiled 3]
+
+Drives phase 5's sequence (12 frames at 480x640, the same trajectory,
+parameters and bootstrap) through ``SemiDenseVO.estimate`` on the card
+and records the last ``--profiled`` frames with ``torch.profiler``.
+Prints, per profiled frame: the wall time, the device-busy time (the
+union of kernel intervals), the kernels launched and the DVO
+Gauss-Newton iterations (``aten::linalg_solve`` calls); then the
+kernels that took the most device time.  The profiler slows the host,
+so its wall times are longer than chip_smoke's.
+"""
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+from tadataka_torch.dataset import multi_plane_scene  # noqa: E402
+
+
+def busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profiled", type=int, default=3)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_slice: no CUDA device")
+    n = chip_smoke.N_FRAMES
+    ds = multi_plane_scene(n, chip_smoke.VGA,
+                           (chip_smoke.VGA_FOCAL, chip_smoke.VGA_FOCAL),
+                           chip_smoke.trajectory(n))
+    frames = [ds[i] for i in range(n)]
+    vo = chip_smoke.make_vo(chip_smoke.VGA, chip_smoke.VGA_FOCAL, "cuda")
+    vo.initial_pose_fn = lambda image0, image1: (
+        frames[1].pose.inv() * frames[0].pose)
+    first = n - args.profiled
+    for frame in frames[:first]:
+        vo.estimate(frame)
+    torch.cuda.synchronize()
+
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(first, n):
+            t0 = time.perf_counter()
+            with record_function(f"frame {k}"):
+                vo.estimate(frames[k])
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("frame ")]
+    solves = [e.time_range.start for e in events
+              if e.name == "aten::linalg_solve"]
+    spans = {e.name: e.time_range for e in events
+             if e.name.startswith("frame ")}
+    for k, wall in zip(range(first, n), walls):
+        span = spans[f"frame {k}"]
+        mine = [e for e in kernels
+                if span.start <= e.time_range.start < span.end]
+        busy = busy_us((e.time_range.start, e.time_range.end) for e in mine)
+        its = sum(span.start <= s < span.end for s in solves)
+        print(f"[profile] frame {k}: wall {wall * 1e3:.2f} ms, device busy "
+              f"{busy / 1e3:.2f} ms, {len(mine)} kernels, {its} DVO "
+              "iterations", flush=True)
+    total_busy = busy_us((e.time_range.start, e.time_range.end)
+                         for e in kernels)
+    wall = sum(walls) * 1e6
+    print(f"[profile] frames {first}-{n - 1}: {len(kernels)} kernels, "
+          f"device busy {total_busy / 1e3:.2f} ms of {wall / 1e3:.2f} ms "
+          f"wall ({100 * total_busy / wall:.1f}%), {len(solves)} DVO "
+          "iterations")
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[profile] {t / 1e3:9.3f} ms {c:6d}x  {name[:100]}")
+
+
+if __name__ == "__main__":
+    main()
