@@ -3,8 +3,9 @@
 
 Per frame: the pose by DVO against the previous depth map (a user
 callback may bootstrap the second frame), age increment, depth/variance
-propagation, the planned plane-sweep depth update, 3x3 regularization,
-and the refframe history.
+propagation, the planned depth update (or, with
+``depth_update="scatter"``, the scattered estimator on every frame), 3x3
+regularization, and the refframe history.
 
 The host keeps the JAX app's pose bookkeeping exactly, because it decides
 the plan: the planner runs on a constant-velocity prediction of the
@@ -28,9 +29,10 @@ from tadataka_torch.vo.dvo import estimate_pose_pyramid
 from tadataka_torch.vo.semi_dense import (
     SemiDenseParams, make_frame, stack_frames, propagate, increment_age,
     regularize)
-from tadataka_torch.vo.semi_dense.estimator import safe_invert
+from tadataka_torch.vo.semi_dense.estimator import safe_invert, update_depth
 from tadataka_torch.vo.semi_dense.fast import plan_update_np, update_depth_fast
 from tadataka_torch.vo.semi_dense.frame import SemiDenseFrame
+from tadataka_torch.vo.semi_dense.params import DEFAULT_N_REF_SAMPLES
 
 
 class SemiDenseVOState(NamedTuple):
@@ -79,14 +81,22 @@ def propagate_step(cam, T10, D0, V0, age0, default_depth, default_variance,
 
 
 def update(cam, params, image, T_wk, ref_frames, age1, d1, v1, plan,
-           regularize_depth, fuse_prior):
-    """Planned depth update against the refframe history (+ 3x3
-    regularization); returns (depth, variance, flags)."""
+           regularize_depth, fuse_prior,
+           n_ref_samples=DEFAULT_N_REF_SAMPLES):
+    """Depth update against the refframe history (+ 3x3 regularization):
+    the planned update, or the scattered estimator when ``plan`` is None.
+    Returns (depth, variance, flags)."""
     keyframe = make_frame(cam, image, T_wk)
     refs = stack_frames(ref_frames)
     age_c = torch.clamp(age1, 0, refs.image.shape[0])
-    d2, v2, flags = update_depth_fast(keyframe, refs, age_c, d1, v1, params,
-                                      plan=plan, fuse_prior=fuse_prior)
+    if plan is None:
+        d2, v2, flags = update_depth(keyframe, refs, age_c, d1, v1, params,
+                                     n_ref_samples=n_ref_samples,
+                                     fuse_prior=fuse_prior)
+    else:
+        d2, v2, flags = update_depth_fast(keyframe, refs, age_c, d1, v1,
+                                          params, plan=plan,
+                                          fuse_prior=fuse_prior)
     if regularize_depth:
         d2 = regularize(d2, v2, flags)
     return d2, v2, flags
@@ -96,15 +106,18 @@ class SemiDenseVO:
     def __init__(self, camera_params, params: SemiDenseParams = None,
                  default_depth=200.0, default_variance=100.0,
                  uncertainty_bias=1.0, depth_range=(60.0, 1000.0),
-                 history_size=8, n_coarse_to_fine=5, regularize_depth=True,
+                 history_size=8, n_ref_samples=DEFAULT_N_REF_SAMPLES,
+                 n_coarse_to_fine=5, regularize_depth=True,
                  initial_pose_fn=None, seed=0, depth_update="fast",
                  metrics=None, initial_depth_map=None,
                  initial_variance_map=None, fuse_prior=True, device="cpu"):
         """``camera_params``: a CameraParameters (moved to ``device``).
         ``initial_pose_fn(image0, image1) -> Pose`` optionally supplies the
         bootstrap pose of the second frame (T10, on ``device``).
-        ``depth_update``: only "fast" (the planned sweep) is ported; the
-        "scatter" estimator is ROADMAP work and raises.
+        ``depth_update``: "fast" plans each frame's update (the
+        homography or the rectified sweep, or the scattered estimator);
+        "scatter" runs the scattered estimator, with ``n_ref_samples``
+        samples per epipolar line, on every frame.
         ``metrics``: any object with ``log_frame(frame_index, **values)``;
         every frame logs the planner's decision.
         ``fuse_prior``: precision-weighted fusion of each new observation
@@ -112,10 +125,9 @@ class SemiDenseVO:
         Without ``initial_depth_map`` the map starts uniform-random in
         ``depth_range`` from numpy ``default_rng(seed)``, the same draw as
         the JAX app."""
-        if depth_update != "fast":
-            raise NotImplementedError(
-                f"depth_update={depth_update!r}: the scattered estimator is "
-                "not ported yet (ROADMAP Queue 1, 'scattered update_depth')")
+        if depth_update not in ("fast", "scatter"):
+            raise ValueError(f"depth_update={depth_update!r}: expected "
+                             "'fast' or 'scatter'")
         self.device = torch.device(device)
         self.camera_params = type(camera_params)(
             *(x.to(self.device) for x in camera_params))
@@ -129,6 +141,7 @@ class SemiDenseVO:
         self.default_variance = default_variance
         self.uncertainty_bias = uncertainty_bias
         self.history_size = history_size
+        self.n_ref_samples = n_ref_samples
         self.n_coarse_to_fine = n_coarse_to_fine
         self.regularize_depth = regularize_depth
         self.fuse_prior = fuse_prior
@@ -245,19 +258,21 @@ class SemiDenseVO:
             cam, T10, prev.depth_map, prev.variance_map, prev.age_map,
             self.default_depth, self.default_variance,
             self.uncertainty_bias)
-        plan = self._plan(push_T_host)
+        plan = (self._plan(push_T_host) if self.depth_update == "fast"
+                else None)
         refs = tuple(self.refframes[-self.history_size:])
         depth1, variance1, flags = update(
             cam, self.params, image, T_wk, refs, age1, depth1, variance1,
-            plan, self.regularize_depth, self.fuse_prior)
+            plan, self.regularize_depth, self.fuse_prior, self.n_ref_samples)
         if not bootstrap:
             self._pending.append((self._frame_id, T10))
 
         if self.metrics is not None:
             self.metrics.log_frame(
-                self._frame_id, plan_path=plan.path,
-                plan_n_planes=sum(plan.n_planes),
-                plan_max_budget=max(
+                self._frame_id,
+                plan_path="scatter" if plan is None else plan.path,
+                plan_n_planes=0 if plan is None else sum(plan.n_planes),
+                plan_max_budget=0 if plan is None else max(
                     (max(b) if not isinstance(b, int) else b
                      for b in plan.warp_budget), default=0))
         self._push_refframe(

@@ -42,3 +42,30 @@ def sqrt(x):
     if x.device.type == "cpu":
         return torch.sqrt(x.double()).to(x.dtype)
     return torch.sqrt(x)
+
+
+def cross3(a, b):
+    """a (..., 3) x b (..., 3), each component a rounded difference of
+    rounded products."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def norm3(v):
+    """Euclidean norm of v (..., 3): squares summed left to right, then
+    the correctly rounded root."""
+    return sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                + v[..., 2] * v[..., 2])
+
+
+def inv3(A):
+    """Inverse of a 3x3 matrix A (..., 3, 3): the adjugate divided by the
+    determinant, in a fixed order and with true division, so that every
+    device gives the same bits (a LAPACK or cuBLAS inverse does not)."""
+    c0 = cross3(A[..., 1, :], A[..., 2, :])     # columns of the adjugate
+    c1 = cross3(A[..., 2, :], A[..., 0, :])
+    c2 = cross3(A[..., 0, :], A[..., 1, :])
+    det = (A[..., 0, 0] * c0[..., 0] + A[..., 0, 1] * c0[..., 1]
+           + A[..., 0, 2] * c0[..., 2])
+    return torch.stack([c0, c1, c2], -1) / det[..., None, None]

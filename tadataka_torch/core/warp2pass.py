@@ -6,10 +6,19 @@ vertical 1-D resample, each written as a clipped ``torch.gather``.  It
 differs from a direct 2-D bilinear warp (``grid_sample``) by the cross
 term of the reconstruction filter, so only this form holds parity with
 the JAX package.  ``homography_warp`` takes a batch of homographies
-(..., 3, 3) and warps one image by each of them at once.
+(..., 3, 3) and warps one image by each of them at once, or one
+homography and a batch of channels (C, H, W) warped alike.
 """
 
 import torch
+
+
+def _gather(img, dim, index):
+    """torch.gather with the leading dims of ``img`` and ``index``
+    broadcast against each other."""
+    batch = torch.broadcast_shapes(img.shape[:-2], index.shape[:-2])
+    return torch.gather(img.expand(batch + img.shape[-2:]), dim,
+                        index.expand(batch + index.shape[-2:]))
 
 
 def gather_rows_bilinear(img, y):
@@ -20,9 +29,8 @@ def gather_rows_bilinear(img, y):
     ay = yc - y0
     y0i = y0.to(torch.int64)
     y1i = torch.clamp(y0i + 1, max=H - 1)
-    src = img.expand(y.shape[:-2] + img.shape[-2:])
-    v0 = torch.gather(src, -2, y0i)
-    v1 = torch.gather(src, -2, y1i)
+    v0 = _gather(img, -2, y0i)
+    v1 = _gather(img, -2, y1i)
     return (1.0 - ay) * v0 + ay * v1
 
 
@@ -34,21 +42,21 @@ def gather_cols_bilinear(img, x):
     ax = xc - x0
     x0i = x0.to(torch.int64)
     x1i = torch.clamp(x0i + 1, max=W - 1)
-    src = img.expand(x.shape[:-2] + img.shape[-2:])
-    v0 = torch.gather(src, -1, x0i)
-    v1 = torch.gather(src, -1, x1i)
+    v0 = _gather(img, -1, x0i)
+    v1 = _gather(img, -1, x1i)
     return (1.0 - ax) * v0 + ax * v1
 
 
 def homography_warp(img, H33, fill=-1.0, eps=1e-6):
-    """Warp ``img`` (H, W) by pixel-space homographies ``H33`` (..., 3, 3):
-    out[..., y', x'] = img(U, V) with (U, V, 1) ~ H33 @ (x', y', 1).
+    """Warp ``img`` (H, W) or (C, H, W) by pixel-space homographies
+    ``H33`` (..., 3, 3): out[..., y', x'] = img(U, V) with
+    (U, V, 1) ~ H33 @ (x', y', 1).
 
     Returns (warped (..., H, W), valid): ``valid`` marks lanes whose
     source is inside the image and in front of the projection plane
     (D > eps); invalid lanes hold ``fill``.
     """
-    Hi, Wi = img.shape
+    Hi, Wi = img.shape[-2:]
     f32 = img.dtype
     h = H33[..., None, None]          # broadcast each entry over (H, W)
     h00, h01, h02 = h[..., 0, 0, :, :], h[..., 0, 1, :, :], h[..., 0, 2, :, :]

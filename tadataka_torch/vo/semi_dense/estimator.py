@@ -1,22 +1,30 @@
-"""Per-pixel epipolar geometry helpers (counterpart of the helpers in
+"""Per-pixel epipolar inverse-depth estimation (counterpart of
 ``tadataka_tpu/vo/semi_dense/estimator.py``).
 
-Only what the plane sweep needs is ported: ``safe_invert``,
-``pixel_geometry_map`` (whole-map per-pixel geometry and failure flags
-for one refframe), ``calc_key_epipole`` and ``_photo_var``.  The
-scattered per-pixel estimator ``update_depth`` is the next slice
-(ROADMAP Queue 1).
+``update_depth`` is the scattered estimator, the reference semantics
+that the planner falls back to: for every pixel, ``n_ref_samples``
+bilinear samples along its epipolar segment in its refframe, a
+normalized-SSD match of the five-sample key patch, triangulation, the
+variance model and the failure flags.  It is plain PyTorch on (S, N)
+sample tensors (N pixels): on the card its per-pixel gathers are cheap.
+The helpers (``pixel_geometry_map``, ``calc_key_epipole``, ...) are
+shared with the plane sweeps.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from tadataka_torch.flags import Flag
+from tadataka_torch.core.gradients import sobel_x, sobel_y
 from tadataka_torch.core.rounding import as_divisor, matmul_small, sqrt
 from tadataka_torch.core.transforms import (
     get_rotation, get_translation, inv_motion_matrix)
-from tadataka_torch.vo.semi_dense.hypothesis import clamped_range
-from tadataka_torch.vo.semi_dense.params import N_KEY_SAMPLES
+from tadataka_torch.vo.semi_dense.fusion import fusion
+from tadataka_torch.vo.semi_dense.hypothesis import (
+    check_args_flag, clamped_range)
+from tadataka_torch.vo.semi_dense.params import (
+    N_KEY_SAMPLES, DEFAULT_N_REF_SAMPLES)
 
 EPSILON = 1e-16
 
@@ -156,3 +164,262 @@ def calc_key_epipole(T_wk, T_wr):
     p_key = matmul_small(
         R_kw, (get_translation(T_wr) - get_translation(T_wk))[:, None])[:, 0]
     return p_key[:2] / (p_key[2] + EPSILON)
+
+
+# ------------------------------------------------------ scattered update
+
+def _key_coords(geo, steps, key_focal, key_offset):
+    """Key-patch sample pixel coords; ``steps`` (5, 1) carries the sample
+    axis against the (N,) fields -> (5, N)."""
+    us_key_x = ((geo.x_key_x + steps * (geo.key_step_size * geo.key_dir_x))
+                * key_focal[0] + key_offset[0])
+    us_key_y = ((geo.x_key_y + steps * (geo.key_step_size * geo.key_dir_y))
+                * key_focal[1] + key_offset[1])
+    return us_key_x, us_key_y
+
+
+def _ref_coords(geo, idx, ref_focal_x, ref_focal_y, ref_offset_x,
+                ref_offset_y):
+    """Ref epipolar sample pixel coords; ``idx`` (S, 1) carries the
+    sample axis -> (S, N)."""
+    us_ref_x = ((geo.x_min_ref_x + idx * (geo.step * geo.ref_dir_x))
+                * ref_focal_x + ref_offset_x)
+    us_ref_y = ((geo.x_min_ref_y + idx * (geo.step * geo.ref_dir_y))
+                * ref_focal_y + ref_offset_y)
+    return us_ref_x, us_ref_y
+
+
+def _corner_index(v, n):
+    """floor(v) as an index clipped to [0, n-1], and its fraction.  The
+    float is clamped before the cast, so a far-off coordinate saturates
+    as XLA's conversion does."""
+    lv = torch.floor(v)
+    i0 = torch.clamp(torch.nan_to_num(torch.clamp(lv, -1.0, float(n))),
+                     0, n - 1).to(torch.int64)
+    return i0, torch.clamp(i0 + 1, max=n - 1), v - lv
+
+
+def _interp_stack_xy(images, r, x, y):
+    """Bilinear sample of a (R, H, W) stack; ``r`` broadcasts against
+    x / y.  The four taps are clipped to the image."""
+    R, H, W = images.shape
+    flat = images.reshape(-1)
+    x0, x1, ax = _corner_index(x, W)
+    y0, y1, ay = _corner_index(y, H)
+    base = r.to(torch.int64) * (H * W)
+    b0 = base + y0 * W
+    b1 = base + y1 * W
+    v00 = flat[b0 + x0]
+    v01 = flat[b0 + x1]
+    v10 = flat[b1 + x0]
+    v11 = flat[b1 + x1]
+    return ((1 - ax) * (1 - ay) * v00 + ax * (1 - ay) * v01
+            + (1 - ax) * ay * v10 + ax * ay * v11)
+
+
+def _interp_image_xy(image, x, y):
+    """Bilinear sample of one (H, W) image at x / y arrays."""
+    return _interp_stack_xy(image[None], torch.zeros((), dtype=torch.int64,
+                                                     device=image.device),
+                            x, y)
+
+
+def _normalize_xy(x, y):
+    """(x, y) / |(x, y)|, unchanged where the norm is 0."""
+    n = sqrt(x * x + y * y)
+    z = n == 0.0
+    n = torch.where(z, 1.0, n)
+    return torch.where(z, x, x / n), torch.where(z, y, y / n)
+
+
+def _ssd_search(ref_intensities, key_intensities, n_valid):
+    """Masked normalized-SSD template match along each pixel's line.
+
+    ref_intensities (S, N), key_intensities (5, N), n_valid (N,) the
+    count of valid ref samples.  Returns the matched sample index
+    (argmin + 2), the earliest window on a tie.  Norms and sums run left
+    to right, the roots correctly rounded, so an ulp cannot move a tie
+    between devices."""
+    S = ref_intensities.shape[0]
+    M = S - N_KEY_SAMPLES + 1
+    w = [ref_intensities[k:k + M] for k in range(N_KEY_SAMPLES)]
+    kk = key_intensities
+    wn2 = w[0] * w[0]
+    kn2 = kk[0] * kk[0]
+    for k in range(1, N_KEY_SAMPLES):
+        wn2 = wn2 + w[k] * w[k]
+        kn2 = kn2 + kk[k] * kk[k]
+    wnorm = sqrt(wn2) + EPSILON
+    knorm = sqrt(kn2) + EPSILON
+    d = w[0] / wnorm - kk[0] / knorm
+    errors = d * d
+    for k in range(1, N_KEY_SAMPLES):
+        d = w[k] / wnorm - kk[k] / knorm
+        errors = errors + d * d
+    idx = torch.arange(M, device=errors.device)[:, None]
+    errors = torch.where(idx <= n_valid - N_KEY_SAMPLES, errors, torch.inf)
+    return torch.argmin(errors, dim=0) + N_KEY_SAMPLES // 2
+
+
+def _warp_point_xy(R, t, x, y, depth):
+    """x / y of the normalized key point (x, y) at ``depth`` through
+    (R, t), per pixel: the JAX package's ``_warp_point``."""
+    px, py = x * depth, y * depth
+    P = [R[i][0] * px + R[i][1] * py + R[i][2] * depth + t[i]
+         for i in range(3)]
+    return P[0] / (P[2] + EPSILON), P[1] / (P[2] + EPSILON)
+
+
+def _pixel_estimate(geo, key_int, ref_int, grad_x, grad_y, prior_inv,
+                    prior_var, R, t, params):
+    """Every pixel's estimate from its sampled intensities.
+
+    ``R`` / ``t``: per-pixel rotation rows R[i][j] and translation t[i],
+    each (N,).  Returns (inv_depth, variance, flag) before the prior
+    checks; a pixel that fails keeps its prior."""
+    f32 = key_int.dtype
+    dg = key_int[1:] - key_int[:-1]
+    key_gradient = sqrt(dg[0] * dg[0] + dg[1] * dg[1] + dg[2] * dg[2]
+                        + dg[3] * dg[3])
+    flag_insufficient = key_gradient < params.min_gradient
+
+    match = _ssd_search(ref_int, key_int, geo.n_samples).to(f32)
+    xr_x = geo.x_min_ref_x + match * geo.step * geo.ref_dir_x
+    xr_y = geo.x_min_ref_y + match * geo.step * geo.ref_dir_y
+
+    # triangulate along the axis of the larger |t| component
+    xk_x, xk_y = geo.x_key_x, geo.x_key_y
+    ry = [R[i][0] * xk_x + R[i][1] * xk_y + R[i][2] for i in range(3)]
+
+    def depth_along(i, x1):
+        n = t[i] - t[2] * x1
+        d = ry[2] * x1 - ry[i]
+        return n / (d + EPSILON)
+
+    key_depth = torch.where(torch.abs(t[0]) > torch.abs(t[1]),
+                            depth_along(0, xr_x), depth_along(1, xr_y))
+    new_inv_depth = safe_invert(key_depth)
+
+    # d(inverse depth)/d(epipolar position)
+    xmin_x, xmin_y = _warp_point_xy(R, t, xk_x, xk_y, geo.min_depth)
+    xmax_x, xmax_y = _warp_point_xy(R, t, xk_x, xk_y, geo.max_depth)
+    dir_x, dir_y = _normalize_xy(xmax_x - xmin_x, xmax_y - xmin_y)
+    xp_x, xp_y = _warp_point_xy(R, t, xk_x, xk_y, key_depth)
+
+    def alpha_along(i, direction, x_ref):
+        d = ry[2] * t[i] - ry[i] * t[2]
+        n = x_ref * t[2] - t[i]
+        return direction * d / (n * n + EPSILON)
+
+    alpha = torch.where(torch.abs(dir_x) > torch.abs(dir_y),
+                        alpha_along(0, dir_x, xp_x),
+                        alpha_along(1, dir_y, xp_y))
+
+    # geometric variance 1 / <epipolar direction, gradient>^2
+    ex, ey = _normalize_xy(xk_x - t[0] / (t[2] + EPSILON),
+                           xk_y - t[1] / (t[2] + EPSILON))
+    gxn, gyn = _normalize_xy(grad_x, grad_y)
+    p = ex * gxn + ey * gyn
+    geo_v = torch.where(p == 0.0, 1.0 / EPSILON, 1.0 / (p * p + EPSILON))
+    photo = _photo_var(key_gradient / (geo.key_step_size + EPSILON))
+    variance = alpha * alpha * (params.geo_coeff ** 2 * geo_v
+                                + params.photo_coeff ** 2 * photo)
+
+    # priority chain, the earliest failure of the reference wins
+    flag = check_args_flag(new_inv_depth, variance, params.min_inv_depth,
+                           params.max_inv_depth)
+    for cond, value in ((geo.flag_far_oob, Flag.REF_FAR_OUT_OF_RANGE),
+                        (geo.flag_close_oob, Flag.REF_CLOSE_OUT_OF_RANGE),
+                        (geo.flag_too_short, Flag.REF_EPIPOLAR_TOO_SHORT),
+                        (flag_insufficient, Flag.INSUFFICIENT_GRADIENT),
+                        (geo.flag_key_oob, Flag.KEY_OUT_OF_RANGE),
+                        (geo.flag_neg_ref, Flag.NEGATIVE_REF_DEPTH)):
+        flag = torch.where(cond, int(value), flag)
+    success = flag == int(Flag.SUCCESS)
+    return (torch.where(success, new_inv_depth, prior_inv),
+            torch.where(success, variance, prior_var), flag)
+
+
+def update_depth(keyframe, refframes, age_map, prior_depth, prior_variance,
+                 params, n_ref_samples=DEFAULT_N_REF_SAMPLES,
+                 fuse_prior=False):
+    """Full-map inverse-depth update by the scattered estimator.
+
+    keyframe + stacked refframe history (oldest first); each pixel's age
+    selects refframe R - age.  Returns (depth_map, variance_map,
+    flag_map).  With ``fuse_prior`` a new observation is fused with the
+    prior (the LSD-SLAM depth filter) instead of replacing it.
+    """
+    H, W = prior_depth.shape
+    R_frames = refframes.image.shape[0]
+    f32 = keyframe.image.dtype
+    device = keyframe.image.device
+
+    T_wk = keyframe.transform_wf
+    T_rk_all = matmul_small(inv_motion_matrix(refframes.transform_wf), T_wk)
+
+    Y, X = torch.meshgrid(torch.arange(H, dtype=f32, device=device),
+                          torch.arange(W, dtype=f32, device=device),
+                          indexing="ij")
+    us_x, us_y = X.ravel(), Y.ravel()
+    age = age_map.ravel().to(torch.int32)
+    prior_v = prior_variance.ravel().to(f32)
+    prior_inv = safe_invert(prior_depth.ravel().to(f32))
+    ridx = torch.clamp(R_frames - age, 0, R_frames - 1).to(torch.int64)
+
+    def select_ref(*per_ref):
+        out = per_ref[0]
+        for i in range(1, R_frames):
+            out = torch.where(ridx == i, per_ref[i], out)
+        return out
+
+    # per-pixel geometry and failure flags of each pixel's refframe
+    key_shape = tuple(keyframe.image.shape)
+    ref_shape = tuple(refframes.image.shape[1:])
+    geos = [
+        pixel_geometry_map(
+            us_x, us_y, prior_inv, prior_v, T_rk_all[r],
+            calc_key_epipole(T_wk, refframes.transform_wf[r]),
+            keyframe.focal_length, keyframe.offset, key_shape,
+            refframes.focal_length[r], refframes.offset[r], ref_shape,
+            params, n_ref_samples)
+        for r in range(R_frames)]
+    geo = type(geos[0])(*(select_ref(*fields) for fields in zip(*geos)))
+
+    # sample coordinates (5, N) / (S, N) and all image gathers at once
+    steps = torch.arange(-(N_KEY_SAMPLES // 2), N_KEY_SAMPLES // 2 + 1,
+                         dtype=f32, device=device)[:, None]
+    us_key_x, us_key_y = _key_coords(geo, steps, keyframe.focal_length,
+                                     keyframe.offset)
+    rf = refframes.focal_length[ridx].T                      # (2, N)
+    ro = refframes.offset[ridx].T
+    idx = torch.arange(n_ref_samples, dtype=f32, device=device)[:, None]
+    us_ref_x, us_ref_y = _ref_coords(geo, idx, rf[0], rf[1], ro[0], ro[1])
+    key_int = _interp_image_xy(keyframe.image, us_key_x, us_key_y)
+    ref_int = _interp_stack_xy(refframes.image, ridx[None, :], us_ref_x,
+                               us_ref_y)
+    del us_ref_x, us_ref_y
+
+    T_pix = T_rk_all[ridx]                                   # (N, 4, 4)
+    R = [[T_pix[:, i, j] for j in range(3)] for i in range(3)]
+    t = [T_pix[:, i, 3] for i in range(3)]
+    inv_d, var, flag = _pixel_estimate(
+        geo, key_int, ref_int, sobel_x(keyframe.image).ravel(),
+        sobel_y(keyframe.image).ravel(), prior_inv, prior_v, R, t, params)
+
+    prior_flag = check_args_flag(prior_inv, prior_v, params.min_inv_depth,
+                                 params.max_inv_depth)
+    prior_bad = prior_flag != int(Flag.SUCCESS)
+    not_processed = age == 0
+    flag = torch.where(prior_bad, prior_flag, flag)
+    flag = torch.where(not_processed, int(Flag.NOT_PROCESSED), flag)
+    keep_prior = not_processed | prior_bad
+    inv_d = torch.where(keep_prior, prior_inv, inv_d)
+    var = torch.where(keep_prior, prior_v, var)
+    if fuse_prior:
+        f_mu, f_var = fusion(inv_d, prior_inv, var, prior_v)
+        success = flag == int(Flag.SUCCESS)
+        inv_d = torch.where(success, f_mu, inv_d)
+        var = torch.where(success, f_var, var)
+    return (safe_invert(inv_d).reshape(H, W), var.reshape(H, W),
+            flag.reshape(H, W))

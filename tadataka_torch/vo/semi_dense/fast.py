@@ -10,10 +10,9 @@ choice of path change the results: it picks, from the 4x4 poses alone,
   rect    — the rectified disparity sweep, for wide lateral baselines;
   scatter — the scattered per-pixel estimator.
 
-In the port the budget constants (``TENT_BUDGET_MAX``, the buckets) only
-pick the plan; they size no warp, since the port's warps are gathers.
-The rect and scatter paths are the next slice of the port:
-``update_depth_fast`` raises on them rather than run another path.
+In the port the budget constants (``TENT_BUDGET_MAX``, ``RECT_MAX_DX``,
+the buckets) only pick the plan; they size no warp, since the port's
+warps are gathers.
 """
 
 from typing import NamedTuple
@@ -208,23 +207,24 @@ def plan_update_np(key_T, key_f, key_c, image_shape,
 
 def update_depth_fast(keyframe, refframes, age_map, prior_depth,
                       prior_variance, params, plan=None, fuse_prior=False):
-    """Planned semi-dense depth update: the plane sweep for a 'tent' plan.
-
-    Raises NotImplementedError on a 'rect' or 'scatter' plan: those paths
-    are not ported yet, and no other path runs in their place."""
+    """Planned semi-dense depth update: the homography sweep for a 'tent'
+    plan, the rectified sweep for 'rect', the scattered estimator for
+    'scatter'.  Returns (depth_map, variance_map, flag_map)."""
+    from tadataka_torch.vo.semi_dense.estimator import update_depth
     from tadataka_torch.vo.semi_dense.sweep import update_depth_sweep
+    from tadataka_torch.vo.semi_dense.sweep_rect import update_depth_rect
 
     if plan is None:
         plan = plan_update(keyframe, refframes, params)
+    if plan.path == 'rect':
+        return update_depth_rect(
+            keyframe, refframes, age_map, prior_depth, prior_variance,
+            params, n_planes=plan.n_planes[0], flips=plan.flips,
+            fuse_prior=fuse_prior)
     if plan.path == 'tent':
         return update_depth_sweep(
             keyframe, refframes, age_map, prior_depth, prior_variance,
             params, n_planes=plan.n_planes, redirect=plan.redirect,
             fuse_prior=fuse_prior)
-    if plan.path == 'rect':
-        raise NotImplementedError(
-            "the rectified sweep (sweep_rect.py + rectify.py) is not ported "
-            "yet: ROADMAP Queue 1, 'rectified sweep'")
-    raise NotImplementedError(
-        f"the {plan.path!r} update (estimator.py::update_depth) is not "
-        "ported yet: ROADMAP Queue 1, 'scattered update_depth'")
+    return update_depth(keyframe, refframes, age_map, prior_depth,
+                        prior_variance, params, fuse_prior=fuse_prior)

@@ -32,3 +32,4 @@ class SemiDenseParams(NamedTuple):
 
 
 N_KEY_SAMPLES = 5          # key patch: steps -2..2
+DEFAULT_N_REF_SAMPLES = 64  # cap of the scattered epipolar search length

@@ -54,8 +54,7 @@ class PlanLog:
         self.frames.append((frame_index, values))
 
 
-@pytest.fixture(scope="module")
-def runs():
+def run_both(depth_update):
     """Both apps over the first frames of the JAX app test's sequence."""
     poses = [JPose.from_rotvec(jnp.float32([0.0, 0.002 * i, 0.0]),
                                jnp.float32([0.18 * i, 0.01 * i, 0.01 * i]))
@@ -70,18 +69,25 @@ def runs():
     T10 = frames[1].pose.inv() * frames[0].pose
 
     jlog, log = PlanLog(), PlanLog()
-    jvo = JSemiDenseVO(jcam, params=jparams, metrics=jlog, **VO_ARGS)
+    jvo = JSemiDenseVO(jcam, params=jparams, metrics=jlog,
+                       depth_update=depth_update, **VO_ARGS)
     jvo.initial_pose_fn = lambda image0, image1: T10
     jstates = [jvo.estimate(image) for image in images]
 
     vo = SemiDenseVO(interop.camera_from_numpy(jcam.focal_length,
                                                jcam.offset),
                      params=interop.params_from_numpy(jparams), metrics=log,
-                     **VO_ARGS)
+                     depth_update=depth_update, **VO_ARGS)
     pT10 = interop.pose_from_numpy(T10.R, T10.t)
     vo.initial_pose_fn = lambda image0, image1: pT10
     states = [interop.to_numpy(vo.estimate(image)) for image in images]
     return states, [as_numpy(s) for s in jstates], log.frames, jlog.frames
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """The planned update ("fast") in both apps."""
+    return run_both("fast")
 
 
 def as_numpy(x):
@@ -199,11 +205,30 @@ def test_app_prefetch_and_finish():
 
 
 def test_app_refuses_scatter_update():
-    """The scattered estimator is not ported: asking for it raises and
-    names the ROADMAP item instead of running another path."""
-    cam = interop.camera_from_numpy((80.0, 80.0), (50.0, 40.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SemiDenseVO(cam, depth_update="scatter")
+    """``depth_update="scatter"`` runs the scattered estimator on every
+    frame in both apps (the plan is None, logged as "scatter"): the
+    bootstrap pose equal, the tracked pose within 5e-3, and on each
+    updated frame flags and ages agreeing on >= 98% of pixels and the
+    relative depth difference on pixels SUCCESS on both with median
+    <= 2e-3 (the bounds of test_app_maps).  The name dates from when
+    the port raised on this option; it is kept so the test's history
+    stays one line."""
+    states, jstates, log, jlog = run_both("scatter")
+    assert [p["plan_path"] for _, p in log] == ["scatter"] * 2
+    assert [p["plan_path"] for _, p in jlog] == ["scatter"] * 2
+    np.testing.assert_allclose(pose_T(states[1]), pose_T(jstates[1]),
+                               atol=1e-6)
+    np.testing.assert_allclose(pose_T(states[2]), pose_T(jstates[2]),
+                               atol=5e-3)
+    for s, j in zip(states[1:], jstates[1:]):
+        assert np.mean(s.flag_map == j.flag_map) >= 0.98
+        assert np.mean(s.age_map == j.age_map) >= 0.98
+        both = (s.flag_map == 0) & (j.flag_map == 0)
+        assert both.mean() > 0.1, both.mean()
+        rel = np.abs(s.depth_map - j.depth_map)[both] / j.depth_map[both]
+        assert np.median(rel) <= 2e-3, np.median(rel)
+        assert np.all(np.isfinite(s.depth_map)) and np.all(
+            s.variance_map > 0)
 
 
 def test_renderer_matches():

@@ -88,3 +88,113 @@ def test_ssd_kernel_bit_equal_to_plain(case, S):
     for port, plain in zip(out, ref):
         assert port.device.type == "cuda"
         assert torch.equal(port, plain)
+
+
+# ------------------------------------------------- SSD probes (exp_ssd.py)
+
+def test_probes_cpu_run_the_plain_versions_uncounted():
+    """On CPU tensors each probe returns its plain version's bits and
+    counts no launch."""
+    from tadataka_torch.probes import exp_ssd as probes
+    args = tensors(ssd_case("invalid_samples", 16))
+    counts = [fn.launches for fn in (probes.ssd_copy_floor, probes.ssd_serial,
+                                     probes.ssd_par)]
+    assert torch.equal(probes.ssd_copy_floor(args[0]),
+                       probes.ssd_copy_floor_reference(args[0]))
+    for fn, ref in ((probes.ssd_serial, probes.ssd_serial_reference),
+                    (probes.ssd_par, probes.ssd_par_reference)):
+        for out, plain in zip(fn(*args), ref(*args)):
+            assert torch.equal(out, plain)
+    assert counts == [fn.launches for fn in (
+        probes.ssd_copy_floor, probes.ssd_serial, probes.ssd_par)]
+
+
+def cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 48, 128])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_probe_kernels_against_plain(case, S):
+    """On the card: the copy floor bit-equal to its plain version in
+    every variant; every ssd_serial variant bit-equal to ssd_search and
+    to the plain version; ssd_par's best equal to its plain version's on
+    >= 0.9999 of pixels with the errors within 1e-6 where best is equal
+    (rsqrtf may differ from torch.rsqrt in the last bit); one launch
+    counted per call.  At S = 128 ssd_par's slab (63.5 KB) takes the
+    launch path past the 48 KB default of dynamic shared memory."""
+    cuda_or_skip()
+    from tadataka_torch.probes import exp_ssd as probes
+    arrays = ssd_case(case, S)
+    if case == "ragged_rows":       # W = 37: the vector loads need W % 4
+        arrays = tuple(a[..., :36] for a in arrays)
+    args = tensors(arrays, device="cuda")
+    for variant in probes.COPY_VARIANTS:
+        before = probes.ssd_copy_floor.launches
+        out = probes.ssd_copy_floor(args[0], *variant)
+        torch.cuda.synchronize()
+        assert probes.ssd_copy_floor.launches == before + 1
+        assert torch.equal(out, probes.ssd_copy_floor_reference(args[0]))
+    search = ssd_search(*args)
+    for variant in probes.SERIAL_VARIANTS:
+        out = probes.ssd_serial(*args, *variant)
+        torch.cuda.synchronize()
+        for a, b, c in zip(out, search, probes.ssd_serial_reference(*args)):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    before = probes.ssd_par.launches
+    out = probes.ssd_par(*args)
+    ref = probes.ssd_par_reference(*args)
+    torch.cuda.synchronize()
+    assert probes.ssd_par.launches == before + 1
+    same = out[0] == ref[0]
+    assert same.float().mean().item() >= 0.9999
+    for a, b in zip(out[1:], ref[1:]):
+        assert torch.where(same, (a - b).abs(), 0.0).max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_probe_kernels_refuse():
+    """On the card: ssd_par refuses an S whose error slab exceeds a
+    block's shared memory, and the vector variants a W they cannot
+    tile."""
+    cuda_or_skip()
+    from tadataka_torch.probes import exp_ssd as probes
+    H, W = 4, 32
+    V = torch.rand((460, H, W), device="cuda")
+    K = torch.rand((5, H, W), device="cuda")
+    mlo = torch.zeros((H, W), device="cuda")
+    mhi = torch.full((H, W), 455.0, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        probes.ssd_par(V, K, mlo, mhi)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        probes.ssd_copy_floor(V[:, :, :30].contiguous(), vec=4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_on_a_rect_stack_of_256_planes():
+    """On the card: ssd_search on a rect plan's stack at its largest size
+    (256 shifted copies of one 480x640 image, -1 fill columns, sentinel
+    bounds 1e9 / -1e9 where the key template leaves the image), bit-equal
+    to the plain version."""
+    cuda_or_skip()
+    from tadataka_torch.core.shiftwarp import const_shift_cols
+    from tadataka_torch.vo.semi_dense.sweep_rect import (
+        _key_template, _shift_stack)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    image = torch.rand((480, 640), generator=gen, device="cuda")
+    shift = torch.tensor([-5.5, -90.0], device="cuda")
+    V = _shift_stack(const_shift_cols(image, shift[0]), 256, fill=-1.0)
+    K = _key_template(const_shift_cols(image, shift[1]))
+    lo = torch.randint(0, 252, (480, 640), generator=gen,
+                       device="cuda").float()
+    off = ~torch.all(K >= 0.0, dim=0)
+    mlo = torch.where(off, 1e9, lo - 6.0)
+    mhi = torch.where(off, -1e9, lo + 6.0)
+    out = ssd_search(V, K, mlo, mhi)
+    ref = ssd_search_reference(V, K, mlo, mhi)
+    torch.cuda.synchronize()
+    for port, plain in zip(out, ref):
+        assert torch.equal(port, plain)
+    assert (out[0] >= 0).float().mean().item() > 0.3

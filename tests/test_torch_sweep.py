@@ -24,6 +24,9 @@ from tadataka_tpu.vo.semi_dense.estimator import (
     pixel_geometry_map as jpixel_geometry_map,
     calc_key_epipole as jcalc_key_epipole)
 from tadataka_tpu.vo.semi_dense.fast import plan_update_np as jplan
+from tadataka_tpu.vo.semi_dense.fast import UpdatePlan as JUpdatePlan
+from tadataka_tpu.vo.semi_dense.fast import (
+    update_depth_fast as jupdate_depth_fast)
 from tadataka_tpu.vo.semi_dense.frame import stack_frames as jstack
 from tadataka_tpu.vo.semi_dense.sweep import (
     _ssd_search_xla, update_depth_sweep as jupdate_depth_sweep)
@@ -35,6 +38,7 @@ from tadataka_torch.vo.semi_dense.estimator import (
     pixel_geometry_map, calc_key_epipole)
 from tadataka_torch.vo.semi_dense.fast import (
     plan_update_np, update_depth_fast, UpdatePlan)
+from tadataka_torch.vo.semi_dense.rectify import baseline_flip
 from tadataka_torch.vo.semi_dense.sweep import (
     ssd_search, update_depth_sweep, _INF)
 
@@ -222,6 +226,26 @@ def test_planner_matches_on_vga_trajectory():
         assert plan.path == "tent", (k, plan)
 
 
+def test_planner_matches_on_lateral_trajectory():
+    """The 480x640 lateral trajectory of chip_smoke.py's rect phase
+    (rotvec (0, 0.002 i, 0), t (0.1, 0.005, 0) i, history 8): equal
+    plans on every frame, the rectified sweep from frame 2 on, with
+    stacks of 64 to 208 planes."""
+    Ts = [np.asarray(JPose.from_rotvec(
+        jnp.float32([0.0, 0.002 * i, 0.0]),
+        jnp.float32([0.1 * i, 0.005 * i, 0.0])).T, np.float64)
+        for i in range(10)]
+    paths = []
+    for k in range(1, len(Ts)):
+        args = planner_args(Ts[k], Ts[max(0, k - 8):k])
+        plan = plan_update_np(*args)
+        assert tuple(plan) == tuple(jplan(*args)), k
+        paths.append(plan.path)
+        if plan.path == "rect":
+            assert 64 <= plan.n_planes[0] <= 208, plan
+    assert paths == ["tent"] + ["rect"] * 8, paths
+
+
 def test_planner_matches_on_stereo_pair():
     """A 0.5 m lateral stereo pair: too wide for the sweep's displacement
     cap, so both planners choose the rectified sweep."""
@@ -236,12 +260,33 @@ def test_planner_matches_on_stereo_pair():
 
 @pytest.mark.parametrize("path", ["rect", "scatter"])
 def test_update_depth_fast_refuses_unported_paths(history_scene, path):
+    """``update_depth_fast`` on a forced 'rect' or 'scatter' plan (the
+    history scene plans 'tent') against the JAX dispatcher on the same
+    plan, each refframe's flip from ``baseline_flip``.  Both paths are
+    ported and refuse nothing; the port's warps have no displacement
+    budget, where the JAX rectification warps mark lanes over 32 px
+    invalid.  Flags agree on >= 98% (rect) / 99.5% (scatter) of pixels;
+    on pixels SUCCESS on both the relative depth difference has median
+    <= 1e-3 (rect) / 5e-5 (scatter).  (Measured: flags equal, medians
+    9e-8 and 5e-7.)  The name dates from when these paths raised; it
+    is kept so the test's history stays one line."""
     key, refs, prior_depth, prior_var, age, _ = history_scene
     pkey, prefs = port_frames(key, refs)
-    plan = UpdatePlan(path, (64,), (False,) * 3, (), ())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        update_depth_fast(pkey, prefs, t(age, torch.int32), t(prior_depth),
-                          t(prior_var),
-                          interop.params_from_numpy(JParams.create(
-                              **PARAMS_ARGS)), plan=plan)
-
+    flips = tuple(baseline_flip(np.asarray(
+        jinv(refs.transform_wf[r]) @ key.transform_wf)) for r in range(3))
+    plan = UpdatePlan(path, (64,) if path == "rect" else (),
+                      flips if path == "rect" else (), (), ())
+    jparams = JParams.create(**PARAMS_ARGS)
+    depth, _, flags = interop.to_numpy(update_depth_fast(
+        pkey, prefs, t(age, torch.int32), t(prior_depth), t(prior_var),
+        interop.params_from_numpy(jparams), plan=plan, fuse_prior=True))
+    jdepth, _, jflags = (np.asarray(x) for x in jupdate_depth_fast(
+        key, refs, jnp.asarray(age), jnp.asarray(prior_depth),
+        jnp.asarray(prior_var), jparams, use_pallas=False,
+        plan=JUpdatePlan(*plan), fuse_prior=True))
+    agree, median = (0.98, 1e-3) if path == "rect" else (0.995, 5e-5)
+    assert np.mean(flags == jflags) >= agree, np.mean(flags == jflags)
+    both = (flags == 0) & (jflags == 0)
+    assert both.mean() > 0.05
+    rel = np.abs(depth - jdepth)[both] / jdepth[both]
+    assert np.median(rel) <= median, np.median(rel)

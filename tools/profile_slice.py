@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Profile the slice of chip_smoke.py phase 5 on one CUDA card.
+"""Profile a slice of chip_smoke.py on one CUDA card.
 
-    python3 tools/profile_slice.py [--profiled 3]
+    python3 tools/profile_slice.py [--path tent|rect|scatter] [--profiled 3]
 
-Drives phase 5's sequence (12 frames at 480x640, the same trajectory,
-parameters and bootstrap) through ``SemiDenseVO.estimate`` on the card
-and records the last ``--profiled`` frames with ``torch.profiler``.
+Drives the sequence of one of chip_smoke.py's 480x640 phases through
+``SemiDenseVO.estimate`` on the card, with the same trajectory,
+parameters and bootstrap: ``tent`` phase 5 (12 frames, the homography
+sweep), ``rect`` the rect phase (10 frames of the lateral trajectory,
+the rectified sweep), ``scatter`` the scatter phase (5 frames,
+``depth_update="scatter"``).  It records the last ``--profiled`` frames
+with ``torch.profiler``.
 Prints, per profiled frame: the wall time, the device-busy time (the
 union of kernel intervals), the kernels launched and the DVO
 Gauss-Newton iterations (``aten::linalg_solve`` calls); then the
@@ -40,16 +44,26 @@ def busy_us(intervals):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("tent", "rect", "scatter"),
+                        default="tent")
     parser.add_argument("--profiled", type=int, default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_slice: no CUDA device")
+    overrides, motion = {}, {}
     n = chip_smoke.N_FRAMES
+    if args.path == "rect":
+        n, motion = chip_smoke.N_RECT_FRAMES, chip_smoke.LATERAL
+    elif args.path == "scatter":
+        n, overrides = chip_smoke.N_SCATTER_FRAMES, dict(depth_update="scatter")
     ds = multi_plane_scene(n, chip_smoke.VGA,
                            (chip_smoke.VGA_FOCAL, chip_smoke.VGA_FOCAL),
-                           chip_smoke.trajectory(n))
+                           chip_smoke.trajectory(n, **motion))
     frames = [ds[i] for i in range(n)]
-    vo = chip_smoke.make_vo(chip_smoke.VGA, chip_smoke.VGA_FOCAL, "cuda")
+    vo = chip_smoke.make_vo(chip_smoke.VGA, chip_smoke.VGA_FOCAL, "cuda",
+                            **overrides)
+    if args.path == "rect":
+        vo.pose_drain_interval = n      # as chip_smoke.phase_rect
     vo.initial_pose_fn = lambda image0, image1: (
         frames[1].pose.inv() * frames[0].pose)
     first = n - args.profiled
@@ -85,8 +99,9 @@ def main():
     total_busy = busy_us((e.time_range.start, e.time_range.end)
                          for e in kernels)
     wall = sum(walls) * 1e6
-    print(f"[profile] frames {first}-{n - 1}: {len(kernels)} kernels, "
-          f"device busy {total_busy / 1e3:.2f} ms of {wall / 1e3:.2f} ms "
+    print(f"[profile] {args.path}, frames {first}-{n - 1}: {len(kernels)} "
+          f"kernels, device busy {total_busy / 1e3:.2f} ms of "
+          f"{wall / 1e3:.2f} ms "
           f"wall ({100 * total_busy / wall:.1f}%), {len(solves)} DVO "
           "iterations")
     by_name = {}

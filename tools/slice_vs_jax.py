@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""The slice of chip_smoke.py phase 5 through the JAX package and the port,
-both on the CPU, at a reduced size; prints each app's quality per frame.
+"""A slice of chip_smoke.py through the JAX package and the port, both on
+the CPU, at a reduced size; prints each app's quality per frame.
 
     JAX_PLATFORMS=cpu python tools/slice_vs_jax.py --scale 4
     JAX_PLATFORMS=cpu python tools/slice_vs_jax.py --scale 2 --init gt
+    JAX_PLATFORMS=cpu python tools/slice_vs_jax.py --trajectory lateral
 
-The trajectory, parameters and frame count are phase 5's.  ``--scale k``
+The trajectory, parameters and frame count are those of phase 5 (the
+homography sweep), or with ``--trajectory lateral`` those of the rect
+phase (chip_smoke.LATERAL, N_RECT_FRAMES frames, the host pose chain
+drained only at the end).  ``--scale k``
 divides the image size (480x640) and the focal length (480) by k, which
 keeps the field of view and every angle of the scene; only the pixel
 pitch changes.  ``--init gt`` starts both maps at the true depth of
@@ -50,11 +54,18 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scale", type=int, default=4)
     parser.add_argument("--init", choices=("random", "gt"), default="random")
+    parser.add_argument("--trajectory", choices=("slice", "lateral"),
+                        default="slice")
     args = parser.parse_args()
     H, W = (n // args.scale for n in chip_smoke.VGA)
     focal = chip_smoke.VGA_FOCAL / args.scale
-    n = chip_smoke.N_FRAMES
-    ds = multi_plane_scene(n, (H, W), (focal, focal), chip_smoke.trajectory(n))
+    if args.trajectory == "lateral":
+        n = chip_smoke.N_RECT_FRAMES
+        poses = chip_smoke.trajectory(n, **chip_smoke.LATERAL)
+    else:
+        n = chip_smoke.N_FRAMES
+        poses = chip_smoke.trajectory(n)
+    ds = multi_plane_scene(n, (H, W), (focal, focal), poses)
     frames = [ds[i] for i in range(n)]
     images = [f.image.numpy() for f in frames]
     init = {}
@@ -73,9 +84,13 @@ def main():
     jvo.initial_pose_fn = lambda image0, image1: jT10
     vo = chip_smoke.make_vo((H, W), focal, "cpu", metrics=log, **init)
     vo.initial_pose_fn = lambda image0, image1: T10
+    if args.trajectory == "lateral":
+        # as the rect phase: the planner sees the constant-velocity
+        # prediction from the bootstrap pose until the last frame
+        jvo.pose_drain_interval = vo.pose_drain_interval = n
 
-    print(f"{H}x{W}, focal {focal}, {n} frames, init {args.init}",
-          flush=True)
+    print(f"{args.trajectory} trajectory, {H}x{W}, focal {focal}, {n} frames,"
+          f" init {args.init}", flush=True)
     last = None
     for k, image in enumerate(images):
         j = jvo.estimate(image)
@@ -101,8 +116,8 @@ def main():
               f"cos {jq['cos']:.4f} | port SUCCESS {pq['success']:.3f} err "
               f"{pq['median_err']:.4f} cos {pq['cos']:.4f} | pose d "
               f"{pose_d:.3g}, flags agree {flags_agree:.4f}", flush=True)
-    print(json.dumps(dict(shape=[H, W], focal=focal, init=args.init,
-                          last=last)))
+    print(json.dumps(dict(trajectory=args.trajectory, shape=[H, W],
+                          focal=focal, init=args.init, last=last)))
 
 
 if __name__ == "__main__":
