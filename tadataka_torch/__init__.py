@@ -8,9 +8,11 @@ Every Pallas kernel on a ported path becomes a hand-written CUDA kernel
 (built with ``nvcc`` at first use, see ``tadataka_torch/cuda_build.py``);
 on a CPU tensor each kernel's wrapper runs its plain PyTorch version.
 
-The port imports ``torch`` and ``numpy`` only; it never imports ``jax``
-or ``tadataka_tpu``.  Float32 matrix products stay in full float32
-(TF32 off, PyTorch's default) and no convolution is used.
+The port imports ``torch``, ``numpy`` and ``scipy`` (the TUM pose
+files' quaternions) only; it never imports ``jax`` or ``tadataka_tpu``,
+and it reads and writes PNG with its own codec.  Float32 matrix products
+stay in full float32 (TF32 off, PyTorch's default) and no convolution is
+used.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
+from tadataka_torch.apps.dvo_trajectory import DvoTrajectory
 from tadataka_torch.apps.semi_dense_vo import SemiDenseVO, SemiDenseVOState

@@ -25,6 +25,7 @@ from tadataka_torch.core.pose import Pose
 from tadataka_torch.core.rounding import as_divisor, matmul_small
 from tadataka_torch.core.transforms import inv_motion_matrix, motion_matrix
 from tadataka_torch.dataset.image_io import rgb2gray
+from tadataka_torch.device import resolve_device
 from tadataka_torch.vo.dvo import estimate_pose_pyramid
 from tadataka_torch.vo.semi_dense import (
     SemiDenseParams, make_frame, stack_frames, propagate, increment_age,
@@ -110,7 +111,7 @@ class SemiDenseVO:
                  n_coarse_to_fine=5, regularize_depth=True,
                  initial_pose_fn=None, seed=0, depth_update="fast",
                  metrics=None, initial_depth_map=None,
-                 initial_variance_map=None, fuse_prior=True, device="cpu"):
+                 initial_variance_map=None, fuse_prior=True, device="cuda"):
         """``camera_params``: a CameraParameters (moved to ``device``).
         ``initial_pose_fn(image0, image1) -> Pose`` optionally supplies the
         bootstrap pose of the second frame (T10, on ``device``).
@@ -124,11 +125,13 @@ class SemiDenseVO:
         with the prior hypothesis (the LSD-SLAM depth filter).
         Without ``initial_depth_map`` the map starts uniform-random in
         ``depth_range`` from numpy ``default_rng(seed)``, the same draw as
-        the JAX app."""
+        the JAX app.
+        ``device``: where the step runs, the card unless the caller asks
+        for "cpu"; raises if it names CUDA and there is none."""
         if depth_update not in ("fast", "scatter"):
             raise ValueError(f"depth_update={depth_update!r}: expected "
                              "'fast' or 'scatter'")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.camera_params = type(camera_params)(
             *(x.to(self.device) for x in camera_params))
         if params is None:

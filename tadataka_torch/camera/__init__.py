@@ -1,2 +1,3 @@
 from tadataka_torch.camera.parameters import CameraParameters
-from tadataka_torch.camera.model import CameraModel, NoDistortion, resize
+from tadataka_torch.camera.distortion import FOV, NoDistortion, RadTan
+from tadataka_torch.camera.model import CameraModel, resize

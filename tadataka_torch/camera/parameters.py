@@ -15,6 +15,14 @@ class CameraParameters(NamedTuple):
         return cls(torch.as_tensor(focal_length, dtype=dtype, device=device),
                    torch.as_tensor(offset, dtype=dtype, device=device))
 
+    @property
+    def params(self):
+        return self.focal_length.tolist() + self.offset.tolist()
+
+    @classmethod
+    def from_params(cls, params):
+        return cls.create(params[0:2], params[2:4])
+
     def normalize(self, keypoints):
         """Pixel coords (..., 2) -> normalized image plane (..., 2)."""
         return (keypoints - self.offset) / self.focal_length

@@ -15,16 +15,30 @@ mapping path a last bit can move an SSD argmin by a plane:
   :func:`sqrt` takes the CPU's root in float64, which rounds to the
   correctly rounded float32 root.
 
-Sums over many elements are written out in a fixed order where they
-occur (``vo/dvo.py``).
+Sums over many elements go through :func:`fixed_order_sum`, one
+pairwise order on every device.
 """
 
 import torch
+import torch.nn.functional as F
 
 
 def as_divisor(value, like):
     """``value`` as a 0-d tensor of ``like``'s dtype and device."""
     return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def fixed_order_sum(x):
+    """Sums of x (k, n) over its last axis, halving it pairwise with
+    elementwise adds: the same order, and so the same bits, on every
+    device (``torch.sum`` and matrix products order their sums by
+    device)."""
+    n = x.shape[-1]
+    x = F.pad(x, (0, (1 << (n - 1).bit_length()) - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
 
 
 def matmul_small(A, B):

@@ -1,3 +1,6 @@
+from tadataka_torch.dataset.frame import Frame
 from tadataka_torch.dataset.synthetic import (
-    Frame, PlaneSceneDataset, multi_plane_scene, render_plane_scene)
-from tadataka_torch.dataset.image_io import rgb2gray
+    PlaneSceneDataset, export_tum_scene, multi_plane_scene,
+    render_plane_scene)
+from tadataka_torch.dataset.image_io import imread, imsave, rgb2gray
+from tadataka_torch.dataset.tum_rgbd import TumRgbdDataset

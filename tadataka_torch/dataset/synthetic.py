@@ -1,5 +1,5 @@
 """Synthetic textured-plane scenes with exact ground truth (counterpart of
-``render_plane_scene`` and ``multi_plane_scene`` in
+``render_plane_scene``, ``multi_plane_scene`` and ``export_tum_scene`` in
 ``tadataka_tpu/dataset/synthetic.py``).
 
 For a camera with pose T_wc (camera -> world), the ray [x, y, 1] meets
@@ -9,20 +9,19 @@ intersection and the plane's texture at that point.
 """
 
 import math
-from typing import Any, NamedTuple
+from pathlib import Path
 
+import numpy as np
 import torch
+from scipy.spatial.transform import Rotation
 
 from tadataka_torch.camera import CameraModel, CameraParameters
 from tadataka_torch.core.coordinates import image_coordinates
 from tadataka_torch.core.pose import Pose
-
-
-class Frame(NamedTuple):
-    camera_model: Any
-    pose: Any       # Pose, camera -> world
-    image: Any      # (H, W) gray
-    depth_map: Any  # (H, W)
+from tadataka_torch.dataset.frame import Frame
+from tadataka_torch.dataset.image_io import imsave
+from tadataka_torch.dataset.tum_rgbd import (
+    DEPTH_FACTOR, _cfg, get_camera_model_rgb)
 
 
 def default_texture(X, Y):
@@ -122,3 +121,48 @@ def multi_plane_scene(n_frames=6, image_shape=(120, 160),
         poses = orbit_poses(n_frames, device=device)
     return PlaneSceneDataset(poses[:n_frames], image_shape, focal_length,
                              planes=MULTI_PLANES, device=device)
+
+
+def export_tum_scene(root, n_frames=4, which_freiburg=1,
+                     image_shape=(480, 640)):
+    """Render a textured plane THROUGH the freiburg camera (its RadTan
+    distortion included: ``camera_model.normalize`` runs the Newton
+    undistort) and write it to ``root`` in TUM RGB-D format: rgb.txt,
+    depth.txt and groundtruth.txt, uint8 RGB PNGs, and uint16 depth PNGs
+    at 5000 x the sequence's scale, both quantized by truncation.  The
+    trajectory, plane and quantization are the JAX package's, and the
+    PNGs are written with the port's codec.  Returns the ground-truth
+    camera -> world Poses."""
+    root = Path(root)
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    (root / "depth").mkdir(exist_ok=True)
+    depth_factor = DEPTH_FACTOR * _cfg(which_freiburg)["scale"]
+    camera_model = get_camera_model_rgb(which_freiburg)
+
+    poses = [Pose.from_rotvec(torch.tensor([0.0, 0.004 * i, 0.001 * i]),
+                              torch.tensor([0.03 * i, 0.01 * i, 0.02 * i]))
+             for i in range(n_frames)]
+    lines_rgb = ["# color images"]
+    lines_depth = ["# depth images"]
+    lines_gt = ["# ground truth"]
+    for i, pose in enumerate(poses):
+        image, depth = render_plane_scene(
+            camera_model, pose, image_shape, plane_origin=(0.0, 0.0, 2.5),
+            plane_normal=(0.06, -0.04, -1.0))
+        rgb8 = np.clip(image.numpy() * 255.0, 0, 255).astype(np.uint8)
+        rgb8 = np.repeat(rgb8[:, :, None], 3, axis=2)
+        dep16 = np.clip(depth.numpy() * depth_factor, 0,
+                        65535).astype(np.uint16)
+        t = 100.0 + 0.1 * i
+        imsave(root / "rgb" / f"{t:.4f}.png", rgb8)
+        imsave(root / "depth" / f"{t + 0.01:.4f}.png", dep16)
+        lines_rgb.append(f"{t:.4f} rgb/{t:.4f}.png")
+        lines_depth.append(f"{t + 0.01:.4f} depth/{t + 0.01:.4f}.png")
+        q = Rotation.from_matrix(pose.R.numpy()).as_quat()
+        p = pose.t.numpy()
+        lines_gt.append(f"{t + 0.005:.4f} {p[0]} {p[1]} {p[2]} "
+                        f"{q[0]} {q[1]} {q[2]} {q[3]}")
+    (root / "rgb.txt").write_text("\n".join(lines_rgb) + "\n")
+    (root / "depth.txt").write_text("\n".join(lines_depth) + "\n")
+    (root / "groundtruth.txt").write_text("\n".join(lines_gt) + "\n")
+    return poses

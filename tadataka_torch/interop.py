@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from tadataka_torch.apps.semi_dense_vo import SemiDenseVOState
-from tadataka_torch.camera import CameraParameters
+from tadataka_torch.camera import (
+    FOV, CameraModel, CameraParameters, NoDistortion, RadTan)
 from tadataka_torch.core.pose import Pose
 from tadataka_torch.vo.semi_dense.frame import SemiDenseFrame
 from tadataka_torch.vo.semi_dense.params import SemiDenseParams
@@ -30,6 +31,25 @@ def params_from_numpy(fields, device="cpu"):
 def camera_from_numpy(focal_length, offset, device="cpu"):
     return CameraParameters(tensor(focal_length, device),
                             tensor(offset, device))
+
+
+def camera_model_from_numpy(focal_length, offset, kind="NoDistortion",
+                            params=(), device="cpu"):
+    """A CameraModel from its intrinsics and its distortion: ``kind``
+    "NoDistortion", "FOV" (``params`` = (omega,)) or "RadTan" (``params``
+    = the COLMAP coefficients, padded to five) -- the type name and the
+    ``params`` of the JAX package's distortion model."""
+    camera = camera_from_numpy(focal_length, offset, device)
+    params = np.asarray(params, np.float32).ravel()
+    if kind == "NoDistortion":
+        distortion = NoDistortion()
+    elif kind == "FOV":
+        distortion = FOV.create(float(params[0]), device=device)
+    elif kind == "RadTan":
+        distortion = RadTan.create(params, device=device)
+    else:
+        raise ValueError(f"Unknown distortion model: {kind}")
+    return CameraModel.create(camera, distortion)
 
 
 def frame_from_numpy(focal_length, offset, image, transform_wf,

@@ -1,29 +1,39 @@
-"""Direct photometric (RGB-D) visual odometry, inverse-compositional
-Gauss-Newton over an image pyramid (counterpart of
-``tadataka_tpu/vo/dvo.py``; the forward-compositional method and the
-robust weights are ROADMAP work).
+"""Direct photometric (RGB-D) visual odometry: coarse-to-fine
+Gauss-Newton over an image pyramid, inverse-compositional ("ic", the
+Jacobian on the template, computed once per level) or
+forward-compositional ("fc", I1 and its gradients sampled and the
+Jacobian recomputed at every iteration), with per-pixel ("map"), no,
+robust ("tukey", "student-t", "huber") or "depth-var" weights
+(counterpart of ``tadataka_tpu/vo/dvo.py``).
 
 Each level's loop stops, like the JAX ``lax.while_loop``, after the
 first iteration whose photometric error does not improve (or after
 ``max_iter + 1`` iterations) and returns the best pose seen.
 
 The CPU and the card give the same bits: every sum over pixels is one
-fixed-order pairwise reduction (:func:`fixed_order_sum`), the pyramid
-resize sums its few nonzero taps left to right, and the 6x6 float32
-solve (``torch.linalg.solve``, TF32 off) with the pose update runs on the
+fixed-order pairwise reduction (``rounding.fixed_order_sum``), the
+pyramid resize sums its few nonzero taps left to right, the robust
+weights sort and sum in fixed orders, and the 6x6 float32 solve
+(``torch.linalg.solve``, TF32 off) with the pose update runs on the
 host.  Fetching the normal equations is the one host sync per iteration
 that reading the stop flag costs anyway.
 """
 
 import math
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
 from tadataka_torch.camera import resize as camera_resize
 from tadataka_torch.core.gradients import np_gradient_2d
 from tadataka_torch.core.interpolation import interpolate
 from tadataka_torch.core.pose import Pose
+from tadataka_torch.core.rounding import as_divisor, fixed_order_sum
+from tadataka_torch.robust.weights import (
+    compute_weights_huber, compute_weights_student_t, compute_weights_tukey)
+
+WEIGHT_KINDS = ("none", "map", "depth-var", "tukey", "student-t", "huber")
+METHODS = ("ic", "fc")
 
 
 def calc_jacobian_cols(focal_length, gx, gy, x, y, z):
@@ -59,19 +69,6 @@ def _in_image_xy(x, y, shape):
 _UPPER = torch.triu_indices(6, 6)        # the 21 entries of J^T W J
 
 
-def fixed_order_sum(x):
-    """Sums of x (k, n) over its last axis, halving it pairwise with
-    elementwise adds: the same order, and so the same bits, on every
-    device (``torch.sum`` and matrix products order their sums by
-    device)."""
-    n = x.shape[-1]
-    x = F.pad(x, (0, (1 << (n - 1).bit_length()) - n))
-    while x.shape[-1] > 1:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    return x[..., 0]
-
-
 def _normal_equations(Jt, Jt_upper, upper_rows, w, residuals, mask):
     """J^T W J (6, 6), J^T W r (6,), the sum of squared residuals and the
     number of valid pixels, on the host.  ``Jt`` (6, N) are the Jacobian
@@ -87,59 +84,164 @@ def _normal_equations(Jt, Jt_upper, upper_rows, w, residuals, mask):
     return JtJ, sums[21:27], sums[27], sums[28]
 
 
-def _estimate_level_ic(camera_model0, camera_model1, I0, D0, I1, weight_map,
-                       R10, t10, max_iter, weight_kind):
-    """Inverse-compositional Gauss-Newton at one pyramid level; the
-    Jacobian lives on the template (frame 0), computed once.  The pose
-    composes on the template side: pose10 <- pose10 * exp(xi)^-1.
-    The pose is kept on the host; returns (R10, t10) on I0's device."""
-    device = I0.device
-    ux, uy = _grid_xy(D0.shape, I0.dtype, device)
-    x0n, y0n = camera_model0.normalize_xy(ux, uy)
+_SIGMA_I2 = 1e-3   # photometric noise floor of "depth-var" ([0, 1] images)
+
+
+def _resolve_weights(weight_kind, residuals, weight_map, mask, dr_dq=None):
+    """Per-pixel weights, 0 on masked lanes.  "depth-var" is LSD-SLAM's
+    tracking weight 1 / (sigma_I^2 + (dr/dq)^2 Var[q]), q the inverse
+    depth, with ``weight_map`` carrying Var[q]."""
+    if weight_kind == "none":
+        return mask.to(residuals.dtype)
+    if weight_kind == "map":
+        return torch.where(mask, weight_map, 0.0)
+    if weight_kind == "depth-var":
+        w = as_divisor(1.0, dr_dq) / (_SIGMA_I2 + dr_dq * dr_dq * weight_map)
+        return torch.where(mask, w, 0.0)
+    if weight_kind == "tukey":
+        return compute_weights_tukey(residuals, mask=mask)
+    if weight_kind == "student-t":
+        return compute_weights_student_t(residuals, mask=mask)
+    if weight_kind == "huber":
+        return compute_weights_huber(residuals, mask=mask)
+    raise ValueError(f"No such weights '{weight_kind}'")
+
+
+def _template_points(camera_model0, D0, grid):
+    """Frame-0 points (p0x, p0y, p0z) at the pixel grid, from the
+    normalized grid ``grid`` (x0n, y0n) or, without one, normalizing the
+    pixel coordinates here."""
+    if grid is None:
+        grid = camera_model0.normalize_xy(
+            *_grid_xy(D0.shape, D0.dtype, D0.device))
+    x0n, y0n = grid
     d0 = D0.ravel()
-    p0x, p0y, p0z = x0n * d0, y0n * d0, d0
-    GX0, GY0 = np_gradient_2d(I0)
-    i0 = I0.ravel()
-    wmap = weight_map.ravel()
-    focal_length = camera_model0.camera_parameters.focal_length
-    Jt = torch.stack(calc_jacobian_cols(
-        focal_length, GX0.ravel(), GY0.ravel(), p0x, p0y,
-        torch.clamp(p0z, min=1e-6)))
-    Jt_upper = Jt[_UPPER[1].to(device)]
-    upper_rows = _UPPER[0].to(device)
-    eye6 = torch.eye(6, dtype=I0.dtype)
+    return x0n * d0, y0n * d0, d0
 
+
+def _warp_points(R, t, p0x, p0y, p0z, camera_model1, shape):
+    """Frame-0 points through (R, t) (on the points' device) into frame
+    1: (p1x, p1y, p1z, us1x, us1y, mask)."""
+    p1x = R[0, 0] * p0x + R[0, 1] * p0y + R[0, 2] * p0z + t[0]
+    p1y = R[1, 0] * p0x + R[1, 1] * p0y + R[1, 2] * p0z + t[1]
+    p1z = R[2, 0] * p0x + R[2, 1] * p0y + R[2, 2] * p0z + t[2]
+    x1 = p1x / (p1z + 1e-16)
+    y1 = p1y / (p1z + 1e-16)
+    us1x, us1y = camera_model1.unnormalize_xy(x1, y1)
+    mask = _in_image_xy(us1x, us1y, shape) & (p1z > 0)
+    return p1x, p1y, p1z, us1x, us1y, mask
+
+
+def _gauss_newton(R10, t10, max_iter, device, iteration, compose):
+    """The Gauss-Newton loop with the error-increase stop, the pose on
+    the host.  ``iteration(R, t)`` (R, t on ``device``) returns the
+    normal equations, the sum of squared residuals and the valid count
+    on the host; ``compose(R, t, xi)`` applies the step.  Returns the
+    best (R10, t10) seen, on ``device``."""
     R, t = R10.cpu(), t10.cpu()
+    eye6 = torch.eye(6, dtype=R.dtype)
     R_best, t_best = R, t
-    prev_error = torch.tensor(float("inf"), dtype=I0.dtype)
+    prev_error = torch.tensor(float("inf"), dtype=R.dtype)
     for _ in range(max_iter + 1):
-        Rd, td = R.to(device), t.to(device)
-        p1x = Rd[0, 0] * p0x + Rd[0, 1] * p0y + Rd[0, 2] * p0z + td[0]
-        p1y = Rd[1, 0] * p0x + Rd[1, 1] * p0y + Rd[1, 2] * p0z + td[1]
-        p1z = Rd[2, 0] * p0x + Rd[2, 1] * p0y + Rd[2, 2] * p0z + td[2]
-        x1 = p1x / (p1z + 1e-16)
-        y1 = p1y / (p1z + 1e-16)
-        us1x, us1y = camera_model1.unnormalize_xy(x1, y1)
-        mask = _in_image_xy(us1x, us1y, I1.shape) & (p1z > 0)
-        i1 = interpolate(I1, torch.stack([us1x, us1y], dim=-1))
-
-        residuals = torch.where(mask, i1 - i0, 0.0)   # IC sign convention
-        if weight_kind == "map":
-            w = torch.where(mask, wmap, 0.0)
-        else:
-            w = mask.to(I0.dtype)
-        JtJ, Jtr, rr, n_valid = _normal_equations(
-            Jt, Jt_upper, upper_rows, w, residuals, mask)
+        JtJ, Jtr, rr, n_valid = iteration(R.to(device), t.to(device))
         curr_error = rr / torch.clamp(n_valid, min=1.0)
         improved = bool(curr_error < prev_error)
         if improved:
             R_best, t_best, prev_error = R, t, curr_error
         if n_valid == 0 or not improved:
             break
-        xi = torch.linalg.solve(JtJ + 1e-12 * eye6, Jtr)
-        dpose = Pose.from_se3(xi).inv()
-        R, t = R @ dpose.R, (R @ dpose.t) + t
+        R, t = compose(R, t, torch.linalg.solve(JtJ + 1e-12 * eye6, Jtr))
     return R_best.to(device), t_best.to(device)
+
+
+def _estimate_level_ic(camera_model0, camera_model1, I0, D0, I1, weight_map,
+                       R10, t10, max_iter, weight_kind, grid=None):
+    """Inverse-compositional Gauss-Newton at one pyramid level; the
+    Jacobian lives on the template (frame 0), computed once.  The pose
+    composes on the template side: pose10 <- pose10 * exp(xi)^-1.
+    ``grid``: the level's normalized pixel grid (see
+    :func:`normalized_grids`).  Returns (R10, t10) on I0's device."""
+    device = I0.device
+    p0x, p0y, p0z = _template_points(camera_model0, D0, grid)
+    GX0, GY0 = np_gradient_2d(I0)
+    gx0, gy0 = GX0.ravel(), GY0.ravel()
+    i0 = I0.ravel()
+    wmap = weight_map.ravel()
+    focal_length = camera_model0.camera_parameters.focal_length
+    Jt = torch.stack(calc_jacobian_cols(
+        focal_length, gx0, gy0, p0x, p0y, torch.clamp(p0z, min=1e-6)))
+    Jt_upper = Jt[_UPPER[1].to(device)]
+    upper_rows = _UPPER[0].to(device)
+
+    def iteration(R, t):
+        p1x, p1y, p1z, us1x, us1y, mask = _warp_points(
+            R, t, p0x, p0y, p0z, camera_model1, I1.shape)
+        i1 = interpolate(I1, torch.stack([us1x, us1y], dim=-1))
+        residuals = torch.where(mask, i1 - i0, 0.0)   # IC sign convention
+        dr_dq = None
+        if weight_kind == "depth-var":
+            # d(residual)/d(inverse depth): the template gradient dotted
+            # with the warp's depth derivative
+            z2 = p1z * p1z + 1e-12
+            dxdq = p0z * (t[0] * p1z - t[2] * p1x) / z2
+            dydq = p0z * (t[1] * p1z - t[2] * p1y) / z2
+            dr_dq = (focal_length[0] * gx0 * dxdq
+                     + focal_length[1] * gy0 * dydq)
+        w = _resolve_weights(weight_kind, residuals, wmap, mask, dr_dq)
+        return _normal_equations(Jt, Jt_upper, upper_rows, w, residuals,
+                                 mask)
+
+    def compose(R, t, xi):
+        dpose = Pose.from_se3(xi).inv()
+        return R @ dpose.R, (R @ dpose.t) + t
+
+    return _gauss_newton(R10, t10, max_iter, device, iteration, compose)
+
+
+def _estimate_level(camera_model0, camera_model1, I0, D0, I1, weight_map,
+                    R10, t10, max_iter, weight_kind, grid=None):
+    """Forward-compositional Gauss-Newton at one pyramid level: every
+    iteration samples I1 and its gradients at the warped points and
+    recomputes the Jacobian there; the step composes on the left,
+    pose10 <- exp(xi) * pose10.  Returns (R10, t10) on I0's device."""
+    device = I0.device
+    p0x, p0y, p0z = _template_points(camera_model0, D0, grid)
+    GX1, GY1 = np_gradient_2d(I1)
+    i0 = I0.ravel()
+    wmap = weight_map.ravel()
+    focal_length = camera_model1.camera_parameters.focal_length
+    upper_cols = _UPPER[1].to(device)
+    upper_rows = _UPPER[0].to(device)
+
+    def iteration(R, t):
+        p1x, p1y, p1z, us1x, us1y, mask = _warp_points(
+            R, t, p0x, p0y, p0z, camera_model1, I1.shape)
+        us1 = torch.stack([us1x, us1y], dim=-1)
+        i1 = interpolate(I1, us1)
+        gx1 = interpolate(GX1, us1)
+        gy1 = interpolate(GY1, us1)
+        # r = I0(u0) - I1(warp(u0)), recomputed at every iteration
+        residuals = torch.where(mask, i0 - i1, 0.0)
+        # masked lanes get z = 1, keeping J finite
+        p1z_safe = torch.where(mask, p1z, 1.0)
+        Jt = torch.stack(calc_jacobian_cols(focal_length, gx1, gy1, p1x,
+                                            p1y, p1z_safe))
+        dr_dq = None
+        if weight_kind == "depth-var":
+            z2 = p1z_safe * p1z_safe
+            dxdq = p0z * (t[0] * p1z_safe - t[2] * p1x) / z2
+            dydq = p0z * (t[1] * p1z_safe - t[2] * p1y) / z2
+            dr_dq = (focal_length[0] * gx1 * dxdq
+                     + focal_length[1] * gy1 * dydq)
+        w = _resolve_weights(weight_kind, residuals, wmap, mask, dr_dq)
+        return _normal_equations(Jt, Jt[upper_cols], upper_rows, w,
+                                 residuals, mask)
+
+    def compose(R, t, xi):
+        dpose = Pose.from_se3(xi)
+        return dpose.R @ R, (dpose.R @ t) + dpose.t
+
+    return _gauss_newton(R10, t10, max_iter, device, iteration, compose)
 
 
 def _triangle_weights(in_size, out_size):
@@ -213,26 +315,103 @@ def pyramid_shape(shape, level, layer_size_ratio):
 
 def estimate_pose_pyramid(camera_model0, camera_model1, I0, D0, I1,
                           weight_map, R10, t10, n_levels, max_iter,
-                          layer_size_ratio, weight_kind, method="ic"):
+                          layer_size_ratio, weight_kind, method="ic",
+                          grids=None):
     """Coarse-to-fine pose estimation; returns (R10, t10).
 
-    ``weight_kind``: "map" (per-pixel ``weight_map``) or "none"."""
-    if method != "ic":
-        raise NotImplementedError(
-            f"DVO method {method!r} is not ported yet (ROADMAP Queue 1, "
-            "'FC DVO')")
-    if weight_kind not in ("map", "none"):
-        raise NotImplementedError(
-            f"DVO weights {weight_kind!r} are not ported yet (ROADMAP "
-            "Queue 1, 'robust/weights.py')")
+    ``weight_kind``: one of ``WEIGHT_KINDS`` ("map" and "depth-var" read
+    ``weight_map``: the weights, or the inverse-depth variance).
+    ``method``: "ic" or "fc".  ``grids``: the per-level normalized pixel
+    grids of :func:`normalized_grids` (finest last), or None to
+    normalize them at every level of every call."""
+    if method not in METHODS:
+        raise ValueError(f"No such DVO method '{method}'")
+    if weight_kind not in WEIGHT_KINDS:
+        raise ValueError(f"No such weights '{weight_kind}'")
+    level_fn = _estimate_level_ic if method == "ic" else _estimate_level
     R, t = R10, t10
-    for level in reversed(range(n_levels)):
+    for k, level in enumerate(reversed(range(n_levels))):
         scale = level_to_scale(level, layer_size_ratio)
         shape = pyramid_shape(I0.shape, level, layer_size_ratio)
-        R, t = _estimate_level_ic(
+        R, t = level_fn(
             camera_resize(camera_model0, scale),
             camera_resize(camera_model1, scale),
             resize_image(I0, shape), resize_image(D0, shape),
             resize_image(I1, shape), resize_image(weight_map, shape),
-            R, t, max_iter, weight_kind)
+            R, t, max_iter, weight_kind,
+            grid=None if grids is None else grids[k])
     return R, t
+
+
+def normalized_grids(camera_model0, n_levels, layer_size_ratio, shape):
+    """Per-level (x0n, y0n) normalized template grids for
+    :func:`estimate_pose_pyramid`, finest level last, on the camera's
+    device: the undistortion table of the pyramid (for RadTan a Newton
+    loop over every pixel, the same on every frame)."""
+    device = camera_model0.camera_parameters.focal_length.device
+    grids = []
+    for level in reversed(range(n_levels)):
+        scale = level_to_scale(level, layer_size_ratio)
+        cm0 = camera_resize(camera_model0, scale)
+        grids.append(cm0.normalize_xy(*_grid_xy(
+            pyramid_shape(shape, level, layer_size_ratio), torch.float32,
+            device)))
+    return tuple(grids)
+
+
+class PoseChangeEstimator:
+    """Coarse-to-fine DVO pose estimator: 5 levels, size ratio 1.5, at
+    most 20 Gauss-Newton iterations a level by default; weights None,
+    a per-pixel map, or one of "tukey", "student-t", "huber",
+    "depth-var" (with a ones map), "map" or "none".  The normalized grids
+    are computed once per image shape.  Runs on the camera models'
+    device."""
+
+    def __init__(self, camera_model0, camera_model1, n_coarse_to_fine=5,
+                 max_iter=20, layer_size_ratio=1.5, method="ic"):
+        if method not in METHODS:
+            raise ValueError(f"No such DVO method '{method}'")
+        self.camera_model0 = camera_model0
+        self.camera_model1 = camera_model1
+        self.n_coarse_to_fine = n_coarse_to_fine
+        self.max_iter = max_iter
+        self.layer_size_ratio = layer_size_ratio
+        self.method = method
+        self.device = camera_model0.camera_parameters.focal_length.device
+        self._grids = {}      # image shape -> per-level normalized grids
+
+    def grids(self, shape):
+        """The per-level normalized grids of an image shape (cached)."""
+        shape = tuple(shape)
+        grids = self._grids.get(shape)
+        if grids is None:
+            grids = normalized_grids(self.camera_model0,
+                                     self.n_coarse_to_fine,
+                                     self.layer_size_ratio, shape)
+            self._grids[shape] = grids
+        return grids
+
+    def __call__(self, I0, D0, I1, weights=None, pose10=None):
+        def f32(x):
+            if not isinstance(x, torch.Tensor):
+                x = np.array(x, dtype=np.float32)
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+        I0, D0, I1 = f32(I0), f32(D0), f32(I1)
+        if not I0.shape == D0.shape == I1.shape:
+            raise ValueError(f"I0, D0 and I1 differ in shape: {I0.shape}, "
+                             f"{D0.shape}, {I1.shape}")
+        if pose10 is None:
+            pose10 = Pose.identity(device=self.device)
+        if isinstance(weights, str):
+            weight_kind, weight_map = weights, torch.ones_like(I0)
+        elif weights is None:
+            weight_kind, weight_map = "none", torch.ones_like(I0)
+        else:
+            weight_kind, weight_map = "map", f32(weights)
+        R, t = estimate_pose_pyramid(
+            self.camera_model0, self.camera_model1, I0, D0, I1, weight_map,
+            pose10.R, pose10.t, self.n_coarse_to_fine, self.max_iter,
+            self.layer_size_ratio, weight_kind, self.method,
+            self.grids(I0.shape))
+        return Pose(R, t)

@@ -77,7 +77,7 @@ def run_both(depth_update):
     vo = SemiDenseVO(interop.camera_from_numpy(jcam.focal_length,
                                                jcam.offset),
                      params=interop.params_from_numpy(jparams), metrics=log,
-                     depth_update=depth_update, **VO_ARGS)
+                     depth_update=depth_update, device="cpu", **VO_ARGS)
     pT10 = interop.pose_from_numpy(T10.R, T10.t)
     vo.initial_pose_fn = lambda image0, image1: pT10
     states = [interop.to_numpy(vo.estimate(image)) for image in images]
@@ -179,6 +179,7 @@ def small_port_run(prefetch):
                      params=SemiDenseParams.create(2.0, 50.0,
                                                    ref_step_size=0.002,
                                                    min_gradient=0.01),
+                     device="cpu",
                      **dict(VO_ARGS, n_coarse_to_fine=3, history_size=3))
     vo.initial_pose_fn = lambda a, b: ds[1].pose.inv() * ds[0].pose
     frames = [ds[i] for i in range(3)]
@@ -269,7 +270,7 @@ def test_port_runs_without_jax():
                              min_gradient=0.01),
                          default_depth=8.0, default_variance=1.0,
                          uncertainty_bias=0.01, depth_range=(2.0, 50.0),
-                         n_coarse_to_fine=3, history_size=3)
+                         n_coarse_to_fine=3, history_size=3, device="cpu")
         vo.initial_pose_fn = lambda a, b: ds[1].pose.inv() * ds[0].pose
         for i in range(3):
             state = vo.estimate(ds[i])

@@ -31,6 +31,7 @@ from tadataka_tpu.vo.dvo import _resize_image as jresize_image
 
 from tadataka_torch import interop
 from tadataka_torch.camera import CameraModel, resize
+from tadataka_torch.camera import FOV as PortFOV
 from tadataka_torch.core import se3, so3, transforms as tf
 from tadataka_torch.core.coordinates import image_coordinates
 from tadataka_torch.core.gradients import sobel_x, sobel_y, np_gradient_2d
@@ -212,9 +213,24 @@ def test_camera_normalize_and_resize(gen):
           jresize(jcm, scale).camera_parameters.offset)
 
 
-def test_camera_model_refuses_unported_distortion():
-    with pytest.raises(NotImplementedError, match="FOV"):
-        CameraModel.create(None, FOV.create(0.1))
+def test_camera_model_refuses_unported_distortion(gen):
+    """Named for the refusal it replaced: ``CameraModel.create`` now takes
+    a FOV distortion, and the camera normalizes and unnormalizes as the
+    JAX FOV camera does (within 1e-5 relative: tan and atan may round an
+    ulp apart)."""
+    jcam = JCameraParameters.create((480.0, 470.0), (320.0, 240.0))
+    jcm = JCameraModel.create(jcam, FOV.create(0.1))
+    cm = CameraModel.create(
+        interop.camera_from_numpy(jcam.focal_length, jcam.offset),
+        PortFOV.create(0.1))
+    ux, uy = (gen.uniform(0, 640, 50).astype(np.float32) for _ in range(2))
+    for port, ref in zip(cm.normalize_xy(t(ux), t(uy)),
+                         jcm.normalize_xy(ux, uy)):
+        close(port, ref)
+    xn, yn = (np.array(v) for v in jcm.normalize_xy(ux, uy))
+    for port, ref in zip(cm.unnormalize_xy(t(xn), t(yn)),
+                         jcm.unnormalize_xy(xn, yn)):
+        close(port, ref, atol=1e-4)
 
 
 @pytest.mark.parametrize("level", [0, 1, 2, 3, 4])

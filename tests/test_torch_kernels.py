@@ -198,3 +198,89 @@ def test_ssd_kernel_on_a_rect_stack_of_256_planes():
     for port, plain in zip(out, ref):
         assert torch.equal(port, plain)
     assert (out[0] >= 0).float().mean().item() > 0.3
+
+
+# ---------------------------------------- gather probes (benchmarks/*gather*)
+
+def gather_case(shape, S=None, seed=11):
+    """Seeded numpy inputs with planted hard indices: the first entries
+    are -n - 1, -n, -1, 0, n - 1, n (n the gathered axis' length), the
+    rest uniform in [-2n, 2n).  Returns (img, idx) for the flat case
+    (``S`` rows of H*W indices) or (img, rows, cols) for the axis case."""
+    gen = np.random.default_rng(seed)
+    H, W = shape
+    img = gen.random((H, W)).astype(np.float32)
+
+    def indices(n, size):
+        idx = gen.integers(-2 * n, 2 * n, size).astype(np.int32)
+        flat = idx.reshape(-1)
+        flat[:6] = [-n - 1, -n, -1, 0, n - 1, n]
+        return idx
+
+    if S is not None:
+        return img, indices(H * W, (S, H * W))
+    return img, indices(H, (H, W)), indices(W, (H, W))
+
+
+def test_gather_probes_cpu_run_the_plain_versions_uncounted():
+    """On CPU tensors each gather wrapper returns its plain version's
+    bits and counts no launch; a wrong dtype or shape raises."""
+    from tadataka_torch.probes import gather as g
+    counts = [fn.launches for fn in g.WRAPPERS]
+    img, rows, cols = tensors(gather_case((7, 9))[:1]) + tensors(
+        gather_case((7, 9))[1:], dtype=torch.int32)
+    assert g.same_bits(g.take_along_axis0(img, rows),
+                       g.take_along_axis_reference(img, rows, 0))
+    assert g.same_bits(g.take_along_axis1(img, cols),
+                       g.take_along_axis_reference(img, cols, 1))
+    assert g.same_bits(g.multi_warp(img, rows, cols, 5),
+                       g.multi_warp_reference(img, rows, cols, 5))
+    img2, idx = gather_case((7, 9), S=3)
+    img2, idx = torch.from_numpy(img2), torch.from_numpy(idx)
+    assert g.same_bits(g.flat_take(img2, idx),
+                       g.flat_take_reference(img2, idx))
+    assert g.same_bits(g.flat_take_rows(img2, idx),
+                       g.flat_take_rows_reference(img2, idx))
+    assert counts == [fn.launches for fn in g.WRAPPERS]
+    with pytest.raises(ValueError, match="int32"):
+        g.flat_take(img2, idx.long())
+    with pytest.raises(ValueError, match="shape"):
+        g.take_along_axis0(img, rows[:, 1:])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        g.flat_take(img2.to("meta"), idx.to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (479, 641), (5, 3)])
+def test_gather_kernels_bit_equal_to_plain(shape):
+    """On the card: each of the five gather kernels against its plain
+    version on the same CUDA tensors, bit for bit with NaN in the same
+    places, on planted negative, out-of-range and edge indices, with odd
+    sizes (S = 20 index rows, N = H*W not a multiple of 2048); one
+    launch counted per call."""
+    cuda_or_skip()
+    from tadataka_torch.probes import gather as g
+    img, rows, cols = gather_case(shape)
+    img = torch.tensor(img, device="cuda")
+    rows, cols = tensors((rows, cols), device="cuda", dtype=torch.int32)
+    flat_img, idx = gather_case(shape, S=20)
+    flat_img = torch.tensor(flat_img, device="cuda")
+    idx = torch.tensor(idx, device="cuda")
+    calls = [
+        (g.take_along_axis0, (img, rows),
+         g.take_along_axis_reference(img, rows, 0)),
+        (g.take_along_axis1, (img, cols),
+         g.take_along_axis_reference(img, cols, 1)),
+        (g.multi_warp, (img, rows, cols, 16),
+         g.multi_warp_reference(img, rows, cols, 16)),
+        (g.flat_take, (flat_img, idx), g.flat_take_reference(flat_img, idx)),
+        (g.flat_take_rows, (flat_img, idx),
+         g.flat_take_rows_reference(flat_img, idx))]
+    for fn, args, ref in calls:
+        before = fn.launches
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert out.device.type == "cuda"
+        assert g.same_bits(out, ref), fn.__name__
+    assert torch.isnan(calls[0][2]).any() and torch.isnan(calls[4][2]).any()

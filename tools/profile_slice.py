@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Profile a slice of chip_smoke.py on one CUDA card.
 
-    python3 tools/profile_slice.py [--path tent|rect|scatter] [--profiled 3]
+    python3 tools/profile_slice.py [--path tent|rect|scatter|dvo]
+                                   [--profiled 3]
 
-Drives the sequence of one of chip_smoke.py's 480x640 phases through
-``SemiDenseVO.estimate`` on the card, with the same trajectory,
-parameters and bootstrap: ``tent`` phase 5 (12 frames, the homography
+Drives the sequence of one of chip_smoke.py's 480x640 phases on the
+card, with the same trajectory, parameters and bootstrap: through
+``SemiDenseVO.estimate``, ``tent`` phase 5 (12 frames, the homography
 sweep), ``rect`` the rect phase (10 frames of the lateral trajectory,
 the rectified sweep), ``scatter`` the scatter phase (5 frames,
-``depth_update="scatter"``).  It records the last ``--profiled`` frames
-with ``torch.profiler``.
+``depth_update="scatter"``); through ``DvoTrajectory.estimate``,
+``dvo`` the dvo phase (the 8-frame freiburg1 TUM scene, exported and
+read back).  It records the last ``--profiled`` frames with
+``torch.profiler``.
 Prints, per profiled frame: the wall time, the device-busy time (the
 union of kernel intervals), the kernels launched and the DVO
 Gauss-Newton iterations (``aten::linalg_solve`` calls); then the
@@ -19,6 +22,7 @@ so its wall times are longer than chip_smoke's.
 
 import argparse
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,17 +48,36 @@ def busy_us(intervals):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("tent", "rect", "scatter"),
+    parser.add_argument("--path", choices=("tent", "rect", "scatter", "dvo"),
                         default="tent")
     parser.add_argument("--profiled", type=int, default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_slice: no CUDA device")
+    with tempfile.TemporaryDirectory() as tum_root:
+        if args.path == "dvo":
+            frames, vo = dvo_sequence(tum_root)
+        else:
+            frames, vo = slice_sequence(args.path)
+        profile_frames(args, frames, vo)
+
+
+def dvo_sequence(tum_root):
+    from tadataka_torch.apps import DvoTrajectory
+    from tadataka_torch.dataset import TumRgbdDataset, export_tum_scene
+    export_tum_scene(tum_root, n_frames=chip_smoke.N_DVO_FRAMES,
+                     image_shape=chip_smoke.VGA)
+    ds = TumRgbdDataset(tum_root, which_freiburg=1)
+    frames = [ds[i] for i in range(len(ds))]
+    return frames, DvoTrajectory(ds.camera_model, weights="huber")
+
+
+def slice_sequence(path):
     overrides, motion = {}, {}
     n = chip_smoke.N_FRAMES
-    if args.path == "rect":
+    if path == "rect":
         n, motion = chip_smoke.N_RECT_FRAMES, chip_smoke.LATERAL
-    elif args.path == "scatter":
+    elif path == "scatter":
         n, overrides = chip_smoke.N_SCATTER_FRAMES, dict(depth_update="scatter")
     ds = multi_plane_scene(n, chip_smoke.VGA,
                            (chip_smoke.VGA_FOCAL, chip_smoke.VGA_FOCAL),
@@ -62,10 +85,15 @@ def main():
     frames = [ds[i] for i in range(n)]
     vo = chip_smoke.make_vo(chip_smoke.VGA, chip_smoke.VGA_FOCAL, "cuda",
                             **overrides)
-    if args.path == "rect":
+    if path == "rect":
         vo.pose_drain_interval = n      # as chip_smoke.phase_rect
     vo.initial_pose_fn = lambda image0, image1: (
         frames[1].pose.inv() * frames[0].pose)
+    return frames, vo
+
+
+def profile_frames(args, frames, vo):
+    n = len(frames)
     first = n - args.profiled
     for frame in frames[:first]:
         vo.estimate(frame)
