@@ -50,6 +50,10 @@ GATHER_REPLACES = {
     "multi_warp": "benchmarks/test_dynamic_gather.py:80",
     "flat_take": "benchmarks/test_pallas_gather.py:51",
     "flat_take_rows": "benchmarks/test_pallas_gather.py:82"}
+# flat_take_rows' time in its first design (a block per 2048 columns,
+# eight index rows a thread; NVIDIA H100 80GB HBM3 at 700 W, PERF.md's
+# kernel table), printed beside its time now
+FIRST_FLAT_TAKE_ROWS_MS = 0.1905
 # the card's data-sheet peaks (NVIDIA H100 SXM): device memory and
 # float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -346,10 +350,14 @@ def phase_probes():
     probe against its plain version at every S the entry point times
     (32, 48, 128, 256; the two-pass search's slab passes 48 KB from
     S = 100), 480x640, on exp_ssd.py's inputs and on ssd_inputs' harder
-    case: the copy floor and every serial variant bit-equal (the serial
+    case: the copy floor in every variant (the thread designs and the
+    bulk-copy ring) and every serial variant bit-equal (the serial
     ones to ssd_search too), the two-pass search within compare_search's
-    bounds of its plain version and of the serial search.  Returns the
-    kernels' JSON entries."""
+    bounds of its plain version and of the serial search.  The bulk-copy
+    floor's best time at each S is printed beside the thread variants'
+    and torch.sum's, and its kernel's SASS must hold the bulk copy
+    (UBLKCP).  Returns the kernels' JSON entries and the measured floor
+    in GB/s."""
     from tadataka_torch.probes import exp_ssd as probes
     from tadataka_torch.vo.semi_dense.sweep import ssd_search
     wrappers = (probes.ssd_copy_floor, probes.ssd_serial, probes.ssd_par)
@@ -369,7 +377,7 @@ def phase_probes():
             V = args[0]
             ref = probes.ssd_copy_floor_reference(V)
             for variant in probes.COPY_VARIANTS:
-                out = probes.ssd_copy_floor(V, *variant)
+                out = probes.ssd_copy_floor(V, variant)
                 torch.cuda.synchronize()
                 errs["ssd_copy_floor"] = max(errs["ssd_copy_floor"],
                                              (out - ref).abs().max().item())
@@ -413,21 +421,34 @@ def phase_probes():
           "ssd_serial": at32["serial"][best["ssd_serial"]],
           "ssd_par": at32["par"]}
     log("probes", "the kernels line gives each probe's fastest variant at "
-        "S=32: copy floor (vec, rows) = {}, serial (cols, rows) = {}".format(
-            best["ssd_copy_floor"], best["ssd_serial"]))
+        "S=32: copy floor {}, serial (cols, rows) = {}".format(
+            probes.copy_variant_name(best["ssd_copy_floor"]),
+            best["ssd_serial"]))
+    bulk = [v for v in probes.COPY_VARIANTS if v[0] == "bulk"]
     for S, t in timings.items():
         gb = S * VGA[0] * VGA[1] * 4 / 1e6
         floor = min(t["floor"].values())
+        old = min(ms for v, ms in t["floor"].items() if v[0] == "threads")
+        new = min(t["floor"][v] for v in bulk)
         log("probes", f"S={S}: measured V-read floor {floor:.4f} ms "
             f"({gb / floor:.1f} GB/s, {gb / floor / 3350:.3f} of the "
             f"3.35 TB/s data sheet); ssd_search {t['search']:.4f} ms "
             f"({gb / t['search']:.1f} GB/s) = {floor / t['search']:.3f} of "
             f"the measured floor; best serial variant "
             f"{min(t['serial'].values()):.4f} ms, par {t['par']:.4f} ms")
+        log("probes", f"S={S}: copy floor, best bulk-copy variant "
+            f"{new:.4f} ms ({gb / new:.1f} GB/s), best thread variant "
+            f"{old:.4f} ms ({gb / old:.1f} GB/s), torch.sum(V, 0) "
+            f"{t['sum']:.4f} ms ({gb / t['sum']:.1f} GB/s): bulk "
+            f"{'no slower than' if new <= t['sum'] else 'slower than'} "
+            f"torch.sum ({new / t['sum']:.3f}x)")
+    sass = kernel_sass(probes.probe_library(), "copy_floor_bulk_kernel")
+    copies = [line.strip() for line in sass if "UBLKCP" in line]
+    log("probes", f"copy_floor_bulk_kernel's SASS: {len(copies)} bulk "
+        f"copies (UBLKCP): {copies[:2]}")
+    assert copies, "copy_floor_bulk_kernel issues no bulk copy"
     H, W = VGA
-    library_ms = probes.cuda_ms(lambda: torch.sum(args[0], 0))
-    log("probes", f"torch.sum(V, 0) at S=32: {library_ms:.4f} ms (the "
-        "library call of the copy floor)")
+    library_ms = at32["sum"]
     search_bytes, search_flops = ssd_search_bytes_flops(32, H, W)
     work = {"ssd_copy_floor": (33 * H * W * 4, 31 * H * W, library_ms),
             "ssd_serial": (search_bytes, search_flops, None),
@@ -887,21 +908,17 @@ def gather_hard_case(shape, S=None, seed=11):
     return img, indices(H, (H, W)), indices(W, (H, W))
 
 
-def multi_warp_loads():
-    """Global loads (LDG) in the SASS of multi_warp_kernel, from
-    cuobjdump, or None where the toolkit has no cuobjdump."""
+def kernel_sass(built, kernel):
+    """The SASS lines of ``kernel`` in a built library, from the
+    toolkit's cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
-    from tadataka_torch.probes.gather import gather_library
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
-    if not tool.exists():
-        return None
-    sass = subprocess.run([str(tool), "-sass", str(gather_library().path)],
+    sass = subprocess.run([str(tool), "-sass", str(built.path)],
                           capture_output=True, text=True,
                           check=True).stdout
     sections = sass.split("Function : ")
-    body = next(x for x in sections if x.split("\n", 1)[0].strip()
-                .find("multi_warp_kernel") >= 0)
-    return sum("LDG" in line for line in body.splitlines())
+    return next(x for x in sections if kernel in x.split("\n", 1)[0]
+                ).splitlines()
 
 
 def phase_gather(floor_gbs):
@@ -910,9 +927,11 @@ def phase_gather(floor_gbs):
     count at 0 before them; each kernel bit-equal to its plain version
     (NaN in the same places) on the scripts' inputs there and here on
     the hard case (planted negative, out-of-range and edge indices, 479 x
-    641, 20 index rows of N = 307039); then each kernel's time beside
-    its plain version's, its library call's and its bound.  Returns the
-    kernels' JSON entries."""
+    641, 20 index rows of N = 307039), flat_take_rows in each of its
+    designs; then each kernel's time beside its plain version's, its
+    library call's and its bound, and flat_take_rows' beside its first
+    design's time, its other design's and its time on identity indices.
+    Returns the kernels' JSON entries."""
     from tadataka_torch.probes import dynamic_gather, flat_gather
     from tadataka_torch.probes import gather as g
     from tadataka_torch.probes.exp_ssd import cuda_ms
@@ -928,7 +947,8 @@ def phase_gather(floor_gbs):
     timed = {**{k: dyn[k] for k in ("take_along_axis0", "take_along_axis1",
                                     "multi_warp")},
              **{k: flat[k] for k in ("flat_take", "flat_take_rows")}}
-    assert all(r["correct"] for r in timed.values()), timed
+    assert all(r["correct"] for r in (*dyn.values(), *flat.values())
+               if isinstance(r, dict)), (dyn, flat)
 
     for shape in ((479, 641), VGA):
         img, rows, cols = gather_hard_case(shape)
@@ -942,8 +962,10 @@ def phase_gather(floor_gbs):
                            g.multi_warp_reference(img, rows, cols, 16)),
             "flat_take": (g.flat_take(fimg, idx),
                           g.flat_take_reference(fimg, idx)),
-            "flat_take_rows": (g.flat_take_rows(fimg, idx),
-                               g.flat_take_rows_reference(fimg, idx))}
+            **{f"flat_take_rows/{d}": (
+                g.flat_take_rows(fimg, idx, design=d),
+                g.flat_take_rows_reference(fimg, idx))
+               for d in g.FLAT_TAKE_ROWS_DESIGNS}}
         torch.cuda.synchronize()
         nans = {}
         for name, (out, ref) in checks.items():
@@ -951,7 +973,8 @@ def phase_gather(floor_gbs):
             nans[name] = f"{torch.isnan(ref).float().mean().item():.3f}"
         log("gather", f"hard case {shape[0]}x{shape[1]} (flat: 20 x "
             f"{shape[0] * shape[1]} indices): all five bit-equal to their "
-            f"plain versions, NaN in the same places (NaN share {nans})")
+            "plain versions (flat_take_rows in each design), NaN in the same "
+            f"places (NaN share {nans})")
 
     img, rows, cols = dynamic_gather.probe_inputs()
     fimg, idx = flat_gather.probe_inputs()
@@ -968,10 +991,23 @@ def phase_gather(floor_gbs):
             lambda: g.flat_take_rows_reference(fimg, idx))}
     one_warp = cuda_ms(lambda: g.multi_warp(img, rows, cols, 1))
     ratio = timed["multi_warp"]["ms"] / one_warp
+    loads = sum("LDG" in line for line in kernel_sass(g.gather_library(),
+                                                       "multi_warp_kernel"))
     log("gather", f"multi_warp S=1: {one_warp * 1e3:.1f} us; S="
         f"{dynamic_gather.S} takes {ratio:.2f}x as long; multi_warp_kernel "
-        f"has {multi_warp_loads()} global loads (LDG) in its SASS")
+        f"has {loads} global loads (LDG) in its SASS")
     assert ratio > 3.0, "multi_warp's gathers were hoisted out of its loop"
+    rows_ms = timed["flat_take_rows"]["ms"]
+    log("gather", f"flat_take_rows ({g.FLAT_TAKE_ROWS_DEFAULT}): "
+        f"{rows_ms:.4f} ms (first design: {FIRST_FLAT_TAKE_ROWS_MS} ms) "
+        f"against torch.take {flat['take']:.4f} ms ("
+        f"{'no slower' if rows_ms <= flat['take'] else 'slower'}, "
+        f"{rows_ms / flat['take']:.3f}x) and flat_take "
+        f"{timed['flat_take']['ms']:.4f} ms; every design: " + ", ".join(
+            f"{d} {flat['flat_take_rows/' + d]['ms']:.4f} ms"
+            for d in g.FLAT_TAKE_ROWS_DESIGNS)
+        + f"; stream on identity indices {flat['identity']['ms']:.4f} ms, "
+        f"on indices 8 to a 32-byte sector {flat['sector']['ms']:.4f} ms")
     plane = VGA[0] * VGA[1] * 4
     work = {"take_along_axis0": (3 * plane, 0, dyn["gather0"]),
             "take_along_axis1": (3 * plane, 0, dyn["gather1"]),

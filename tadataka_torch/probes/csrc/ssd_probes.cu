@@ -11,9 +11,24 @@
 // 480x640), and write a few bytes per pixel, so device memory bandwidth
 // bounds them; the probes measure how close each design gets.
 //
-// - ssd_copy_floor sums the S planes left to right, one pixel or four
-//   adjacent pixels (float4) per thread, over ``rows`` rows per thread:
-//   nothing but the read of V, the floor the search is held against.
+// - ssd_copy_floor sums the S planes left to right: nothing but the read
+//   of V, the floor the search is held against.  Two designs:
+//   * threads: one pixel or four adjacent pixels (float4) per thread,
+//     over ``rows`` rows per thread, each thread's loads in flight as far
+//     as its unrolled loop reaches (8 planes);
+//   * bulk: a persistent grid of ``ctas`` blocks per SM, each owning
+//     contiguous tiles of pixels (about 2.3k pixels a tile at one block
+//     per SM at 480x640).  One thread streams the tiles' planes into a
+//     ring of ``stages`` shared-memory stages with 1-D bulk copies
+//     (cp.async.bulk, one mbarrier a stage, the first ``stages`` planes
+//     issued at once), the block adds each stage into float4 register
+//     accumulators in plane order, and once every thread has read a
+//     stage the next plane goes into it.  The copies carry an L2
+//     evict-first policy: V is read once, and its lines then replace one
+//     another in L2 instead of the dirty lines other kernels left there,
+//     whose write-back would share device memory with the read (at S=32
+//     it doubled the bytes moved).  The copies need 16-byte aligned
+//     planes, so the launcher refuses H * W % 4 != 0.
 // - ssd_serial is ssd_search.cu's search with ``cols`` = 1, 2 or 4
 //   adjacent columns per thread (float2 / float4 loads) and blocks of 32
 //   threads by ``rows`` rows: more bytes in flight per thread against
@@ -29,6 +44,9 @@
 //   refuses an S whose slab exceeds the 227 KB a block may hold.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -38,6 +56,13 @@ constexpr int kCopyThreads = 128;
 constexpr int kSerialBlockX = 32;
 constexpr int kParPixels = 128;
 constexpr int kMaxSharedBytes = 232448;   // 227 KB, Hopper's per-block cap
+constexpr int kSharedPerSm = 233472;      // 228 KB an SM ...
+constexpr int kSharedReserved = 1024;     // ... less 1 KB per resident block
+constexpr int kBulkThreads = 256;
+constexpr int kBulkPerThread = 4;         // float4 accumulators a thread
+constexpr int kBulkMaxStages = 32;
+constexpr int kBulkHeader = 8 * kBulkMaxStages;   // the stages' mbarriers
+constexpr int kBulkAlign = 128;           // bytes between stage starts
 
 template <int N> struct Vec;
 template <> struct Vec<1> { using T = float; };
@@ -83,6 +108,108 @@ __global__ void copy_floor_kernel(const float* __restrict__ V, int S, int H,
       for (int i = 0; i < N; ++i) acc[i] = acc[i] + v[i];
     }
     store<N>(out + p, acc);
+  }
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT;\n}" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// Item q of a block: plane q % S of its tile q / S (the block's tiles are
+// blockIdx.x, blockIdx.x + gridDim.x, ...), copied into stage q % stages
+// under the L2 cache policy ``policy``.
+__device__ __forceinline__ void issue_plane(const float4* V, int S, int P4,
+                                            int tile4, int q, int stages,
+                                            int stage_bytes, uint32_t bars,
+                                            uint32_t ring, uint64_t policy) {
+  const int t = static_cast<int>(blockIdx.x) +
+                q / S * static_cast<int>(gridDim.x);
+  const int s = q % S;
+  const int len4 = min(tile4, P4 - t * tile4);
+  const uint32_t bar = bars + 8 * (q % stages);
+  const float4* src = V + static_cast<size_t>(s) * P4 +
+                      static_cast<size_t>(t) * tile4;
+  // the block's reads of this stage (ordered by __syncthreads) before
+  // the async proxy's write
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(len4 * 16) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
+      :: "r"(ring + (q % stages) * stage_bytes), "l"(src), "r"(len4 * 16),
+         "r"(bar), "l"(policy)
+      : "memory");
+}
+
+__global__ void __launch_bounds__(kBulkThreads)
+copy_floor_bulk_kernel(const float4* __restrict__ V, int S, int P4,
+                       int tile4, int n_tiles, int stages, int stage_bytes,
+                       float4* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bars = shared_addr(smem);
+  const uint32_t ring = bars + kBulkHeader;
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  const int grid = static_cast<int>(gridDim.x);
+  const int Q = (n_tiles - static_cast<int>(blockIdx.x) + grid - 1) / grid
+                * S;
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < stages; ++d)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(bars + 8 * d) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();                // the barriers are set up before any wait
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < min(stages, Q); ++q)
+      issue_plane(V, S, P4, tile4, q, stages, stage_bytes, bars, ring,
+                  policy);
+  }
+  float4 acc[kBulkPerThread];
+  for (int q = 0; q < Q; ++q) {
+    const int t = static_cast<int>(blockIdx.x) +
+                q / S * static_cast<int>(gridDim.x);
+    const int s = q % S;
+    const int len4 = min(tile4, P4 - t * tile4);
+    const float4* stage = reinterpret_cast<const float4*>(
+        smem + kBulkHeader + (q % stages) * stage_bytes);
+    wait_parity(bars + 8 * (q % stages), (q / stages) & 1);
+#pragma unroll
+    for (int j = 0; j < kBulkPerThread; ++j) {
+      const int k = static_cast<int>(threadIdx.x) + j * kBulkThreads;
+      if (k < len4) {
+        const float4 v = stage[k];
+        if (s == 0) {
+          acc[j] = v;               // not 0 + v: that would turn -0 into +0
+        } else {
+          acc[j].x = acc[j].x + v.x;
+          acc[j].y = acc[j].y + v.y;
+          acc[j].z = acc[j].z + v.z;
+          acc[j].w = acc[j].w + v.w;
+        }
+      }
+    }
+    __syncthreads();              // every thread has read stage q % stages
+    if (threadIdx.x == 0 && q + stages < Q)
+      issue_plane(V, S, P4, tile4, q + stages, stages, stage_bytes, bars,
+                  ring, policy);
+    if (s == S - 1) {
+#pragma unroll
+      for (int j = 0; j < kBulkPerThread; ++j) {
+        const int k = static_cast<int>(threadIdx.x) + j * kBulkThreads;
+        if (k < len4) __stcs(out + static_cast<size_t>(t) * tile4 + k,
+                             acc[j]);
+      }
+    }
   }
 }
 
@@ -258,6 +385,46 @@ extern "C" int ssd_copy_floor_launch(const float* V, int S, int H, int W,
     copy_floor_kernel<4><<<grid, kCopyThreads, 0, s>>>(V, S, H, W, rows, out);
   else
     copy_floor_kernel<1><<<grid, kCopyThreads, 0, s>>>(V, S, H, W, rows, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bulk-copy floor: ``stages`` in 1 .. 32, ``ctas`` blocks per SM in
+// 1 .. 8.  A tile holds at most 1024 float4 (one to four a thread) and
+// is cut so that the ring of ``ctas`` blocks fits in an SM's shared memory.
+extern "C" int ssd_copy_floor_bulk_launch(const float* V, int S, int H, int W,
+                                          int stages, int ctas, float* out,
+                                          void* stream) {
+  const long P = static_cast<long>(H) * W;
+  if (S < 1 || H < 1 || W < 1 || P % 4 != 0 || P / 4 > (1L << 30) ||
+      stages < 1 || stages > kBulkMaxStages || ctas < 1 || ctas > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status == cudaSuccess)
+    status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const int P4 = static_cast<int>(P / 4);
+  const int blocks = sms * ctas;
+  const int shared = std::min(kMaxSharedBytes,
+                              kSharedPerSm / ctas - kSharedReserved);
+  const int tile4 = std::min({(P4 + blocks - 1) / blocks,
+                              kBulkThreads * kBulkPerThread,
+                              (shared - kBulkHeader) / stages / kBulkAlign *
+                                  (kBulkAlign / 16)});
+  if (tile4 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int stage_bytes = (tile4 * 16 + kBulkAlign - 1) / kBulkAlign *
+                          kBulkAlign;
+  const int n_tiles = (P4 + tile4 - 1) / tile4;
+  const int bytes = kBulkHeader + stages * stage_bytes;
+  status = cudaFuncSetAttribute(copy_floor_bulk_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                bytes);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  copy_floor_bulk_kernel<<<std::min(blocks, n_tiles), kBulkThreads, bytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(V), S, P4, tile4, n_tiles, stages,
+      stage_bytes, reinterpret_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,8 @@ sweep and the two-pass search with its error slab in shared memory.
 
 runs them on the card at 480x640 on ``exp_ssd.py``'s inputs (uniform V
 and K from a seeded generator, full window bounds) and prints each
-time in ms, the floor's GB/s at S = 32, 48, 128 and 256, and the
+time in ms, the floor's GB/s at S = 32, 48, 128 and 256 in every
+variant beside ``torch.sum(V, 0)`` (also with a clean L2), and the
 serial-against-par ``max|diff|`` lines.  It needs a CUDA device.
 
 Each probe is a hand-written kernel (``csrc/ssd_probes.cu``) with a
@@ -27,7 +28,13 @@ from tadataka_torch.vo.semi_dense.sweep import (
 
 SHAPE = (480, 640)
 PLANES = (32, 48, 128, 256)
-COPY_VARIANTS = tuple((vec, rows) for vec in (1, 4) for rows in (1, 8, 32))
+# the copy floor's variants: ("threads", pixels a thread, rows a block)
+# and ("bulk", ring stages, blocks per SM)
+COPY_VARIANTS = tuple(("threads", vec, rows) for vec in (1, 4)
+                      for rows in (1, 8, 32)) + tuple(
+    ("bulk", stages, ctas) for stages, ctas in ((2, 1), (4, 1), (8, 1),
+                                                (8, 2)))
+COPY_DEFAULT = ("bulk", 4, 1)
 SERIAL_VARIANTS = tuple((cols, rows) for cols in (1, 2, 4)
                         for rows in (2, 8, 16))
 
@@ -45,11 +52,14 @@ def probe_library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         built.lib.ssd_copy_floor_launch.argtypes = [ptr] + [i32] * 5 + [
             ptr, ptr]
+        built.lib.ssd_copy_floor_bulk_launch.argtypes = [ptr] + [i32] * 5 + [
+            ptr, ptr]
         built.lib.ssd_serial_launch.argtypes = [ptr] * 4 + [i32] * 5 + [
             ptr] * 5
         built.lib.ssd_par_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 5
         built.lib.ssd_par_shared_bytes.argtypes = [i32]
         for fn in (built.lib.ssd_copy_floor_launch,
+                   built.lib.ssd_copy_floor_bulk_launch,
                    built.lib.ssd_serial_launch, built.lib.ssd_par_launch,
                    built.lib.ssd_par_shared_bytes):
             fn.restype = i32
@@ -95,20 +105,38 @@ def ssd_copy_floor_reference(V):
     return acc
 
 
-def ssd_copy_floor(V, vec=4, rows=8):
+def copy_variant_name(variant):
+    """A copy-floor variant as the probe lines print it."""
+    kind, a, b = variant
+    if kind == "threads":
+        return f"vec={a} rows={b:2d}"
+    return f"bulk stages={a:2d} ctas/SM={b}"
+
+
+def ssd_copy_floor(V, variant=COPY_DEFAULT):
     """Sum of the planes of V (S, H, W) float32, read once: the card's
-    V-read floor.  ``vec`` 1 or 4 pixels per thread (scalar or float4
-    loads); each block covers ``rows`` rows, which its threads walk."""
+    V-read floor.  ``variant`` is ("threads", vec, rows): ``vec`` 1 or 4
+    pixels per thread (scalar or float4 loads), each block covering
+    ``rows`` rows, which its threads walk (refuses W % vec != 0); or
+    ("bulk", stages, ctas): ``ctas`` blocks per SM stream V through a
+    ring of ``stages`` shared-memory stages with bulk copies (refuses
+    H * W % 4 != 0)."""
     if V.dim() != 3 or V.dtype != torch.float32:
         raise ValueError("ssd_copy_floor wants V (S, H, W) float32")
+    kind = variant[0]
+    if kind not in ("threads", "bulk") or len(variant) != 3:
+        raise ValueError(f"ssd_copy_floor: no variant {variant!r}")
     if _device_of("ssd_copy_floor", V) == "cpu":
         return ssd_copy_floor_reference(V)
     S, H, W = V.shape
     out = torch.empty((H, W), dtype=torch.float32, device=V.device)
+    lib = probe_library().lib
+    launch = (lib.ssd_copy_floor_launch if kind == "threads"
+              else lib.ssd_copy_floor_bulk_launch)
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("ssd_copy_floor", probe_library().lib.ssd_copy_floor_launch(
-            V.data_ptr(), S, H, W, vec, rows, out.data_ptr(), stream))
+        _launch("ssd_copy_floor", launch(V.data_ptr(), S, H, W, *variant[1:],
+                                         out.data_ptr(), stream))
     ssd_copy_floor.launches += 1
     return out
 
@@ -206,15 +234,20 @@ ssd_par.launches = 0
 
 # ----------------------------------------------------------- on the card
 
-def cuda_ms(fn, repeats=20, flush_bytes=256 << 20):
+def cuda_ms(fn, repeats=20, flush_bytes=256 << 20, clean=False):
     """Median device ms of ``fn`` over ``repeats`` runs, each timed with
     CUDA events after the L2 cache is flushed by writing a larger
-    buffer (the SSD volume is read cold on the main path)."""
+    buffer (the SSD volume is read cold on the main path).  That leaves
+    L2 full of dirty lines, which a read must write back as it evicts
+    them; ``clean`` flushes by reading the buffer instead."""
     flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
     fn()
     times = []
     for _ in range(repeats):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -237,23 +270,39 @@ def probe_inputs(S, H, W, seed=0):
 
 
 def run_probes(planes=PLANES, shape=SHAPE, log=print):
-    """Time every probe variant at each S on the card; returns
-    {S: {"floor": {(vec, rows): ms}, "serial": {(cols, rows): ms},
-    "par": ms, "search": ms}} and logs one line per probe."""
+    """Time every probe variant and ``torch.sum(V, 0)`` at each S on the
+    card, and the sum, the float4 floor and the default bulk-copy floor
+    again with a clean L2; returns {S: {"floor": {variant: ms}, "serial":
+    {(cols, rows): ms}, "par": ms, "search": ms, "sum": ms, "clean":
+    {"torch.sum", "threads", "bulk": ms}}} and logs one line per
+    probe."""
     H, W = shape
     results = {}
     for S in planes:
         args = probe_inputs(S, H, W)
         gb = S * H * W * 4 / 1e6          # MB of V = GB/s at 1 ms
-        floor = {v: cuda_ms(lambda v=v: ssd_copy_floor(args[0], *v))
+        floor = {v: cuda_ms(lambda v=v: ssd_copy_floor(args[0], v))
                  for v in COPY_VARIANTS}
+        total = cuda_ms(lambda: torch.sum(args[0], 0))
         serial = {v: cuda_ms(lambda v=v: ssd_serial(*args, *v))
                   for v in SERIAL_VARIANTS}
         par = cuda_ms(lambda: ssd_par(*args))
         search = cuda_ms(lambda: ssd_search(*args))
-        for (vec, rows), ms in floor.items():
-            log(f"S={S:3d} copy floor vec={vec} rows={rows:2d}: {ms:.4f} ms,"
-                f" {gb / ms:.1f} GB/s")
+        for v, ms in floor.items():
+            log(f"S={S:3d} copy floor {copy_variant_name(v)}: {ms:.4f} ms, "
+                f"{gb / ms:.1f} GB/s")
+        log(f"S={S:3d} torch.sum(V, 0): {total:.4f} ms, {gb / total:.1f} "
+            "GB/s")
+        clean = {name: cuda_ms(fn, clean=True) for name, fn in (
+            ("torch.sum", lambda: torch.sum(args[0], 0)),
+            ("threads", lambda: ssd_copy_floor(args[0], ("threads", 4, 1))),
+            ("bulk", lambda: ssd_copy_floor(args[0])))}
+        log(f"S={S:3d} with a clean L2 (flushed by a read, no dirty line "
+            "to write back): " + ", ".join(
+                f"{name} {ms:.4f} ms ({gb / ms:.1f} GB/s)" for name, ms in zip(
+                    ("torch.sum(V, 0)", "copy floor vec=4 rows= 1",
+                     f"copy floor {copy_variant_name(COPY_DEFAULT)}"),
+                    clean.values())))
         for (cols, rows), ms in serial.items():
             log(f"S={S:3d} serial cols={cols} rows={rows:2d}: {ms:.4f} ms, "
                 f"{gb / ms:.1f} GB/s")
@@ -261,7 +310,8 @@ def run_probes(planes=PLANES, shape=SHAPE, log=print):
             f"{par:.4f} ms, {gb / par:.1f} GB/s")
         log(f"S={S:3d} ssd_search: {search:.4f} ms, {gb / search:.1f} GB/s, "
             f"{min(floor.values()) / search:.3f} of the best floor")
-        results[S] = dict(floor=floor, serial=serial, par=par, search=search)
+        results[S] = dict(floor=floor, serial=serial, par=par, search=search,
+                          sum=total, clean=clean)
     return results
 
 

@@ -6,10 +6,13 @@
 runs, at 480x640 with 64 index rows of 307200 (one sample set per pixel)
 on the script's inputs from a seeded generator: the library's
 ``torch.take`` in place of the XLA line, ``flat_take`` (clip, one
-gather per thread) and ``flat_take_rows`` (take_along_axis, eight index
-rows a thread).  Each line gives the time in ms (CUDA-event median, L2
-flushed) and whether the kernel is bit-equal to its plain version.  It
-needs a CUDA device.
+gather per thread) and ``flat_take_rows`` (take_along_axis) in each of
+its designs, the default first, then the "stream" design on identity
+indices (idx[s, n] = n: the same bytes with no random access, the
+gather's achievable floor) and on indices that share a 32-byte sector
+eight at a time (as random, with an eighth of the distinct sectors).  Each line gives the time in ms
+(CUDA-event median, L2 flushed) and whether the kernel is bit-equal to
+its plain version.  It needs a CUDA device.
 """
 
 import sys
@@ -18,8 +21,8 @@ import torch
 
 from tadataka_torch.probes.exp_ssd import cuda_ms
 from tadataka_torch.probes.gather import (
-    flat_take, flat_take_reference, flat_take_rows, flat_take_rows_reference,
-    same_bits)
+    FLAT_TAKE_ROWS_DEFAULT, FLAT_TAKE_ROWS_DESIGNS, flat_take,
+    flat_take_reference, flat_take_rows, flat_take_rows_reference, same_bits)
 
 SHAPE = (480, 640)
 S = 64
@@ -36,21 +39,47 @@ def probe_inputs(shape=SHAPE, S=S, seed=0):
     return img, idx
 
 
+def identity_indices(S, N):
+    """idx[s, n] = n, (S, N) int32 on the card."""
+    return torch.arange(N, dtype=torch.int32, device="cuda").expand(
+        S, N).contiguous()
+
+
+def sector_indices(idx):
+    """idx with each run of 8 columns gathering the 8 floats of one
+    32-byte sector (the sector of the run's first index), in order."""
+    n = torch.arange(idx.shape[1], device=idx.device)
+    return (idx[:, n - n % 8] // 8 * 8 + (n % 8)).to(torch.int32)
+
+
 def run(shape=SHAPE, log=print):
     """Time and check both kernels and torch.take on the card; returns
-    {"take": ms, "flat_take": {"ms", "correct"}, "flat_take_rows": ...}."""
+    {"take": ms, "flat_take": {"ms", "correct"}, "flat_take_rows": ...
+    (the default design), "flat_take_rows/<design>": ... (every design),
+    "identity", "sector": ... ("stream" on identity and sector-sharing
+    indices)}."""
     img, idx = probe_inputs(shape)
     flat, idx64 = img.reshape(-1), idx.long()     # torch.take wants int64
     results = {"take": cuda_ms(lambda: torch.take(flat, idx64))}
-    log(f"torch.take (S,N)         : {results['take']:8.4f} ms")
-    for label, fn, reference in (
-            ("cuda flat_take          ", flat_take, flat_take_reference),
-            ("cuda flat_take_rows     ", flat_take_rows,
-             flat_take_rows_reference)):
-        correct = same_bits(fn(img, idx), reference(img, idx))
-        ms = cuda_ms(lambda: fn(img, idx))
-        log(f"{label}: {ms:8.4f} ms   correct={correct}")
-        results[fn.__name__] = dict(ms=ms, correct=correct)
+    log(f"{'torch.take (S,N)':36s}: {results['take']:8.4f} ms")
+    designs = (FLAT_TAKE_ROWS_DEFAULT,) + tuple(
+        d for d in FLAT_TAKE_ROWS_DESIGNS if d != FLAT_TAKE_ROWS_DEFAULT)
+    cases = [("flat_take", "cuda flat_take", flat_take, idx, {},
+              flat_take_reference)] + [
+        (f"flat_take_rows/{d}", f"cuda flat_take_rows {d}", flat_take_rows,
+         idx, dict(design=d), flat_take_rows_reference) for d in designs] + [
+        ("identity", "cuda flat_take_rows stream, idx=n", flat_take_rows,
+         identity_indices(*idx.shape), dict(design="stream"),
+         flat_take_rows_reference),
+        ("sector", "cuda flat_take_rows stream, 8/sector", flat_take_rows,
+         sector_indices(idx), dict(design="stream"),
+         flat_take_rows_reference)]
+    for key, label, fn, index, options, reference in cases:
+        correct = same_bits(fn(img, index, **options), reference(img, index))
+        ms = cuda_ms(lambda: fn(img, index, **options))
+        log(f"{label:36s}: {ms:8.4f} ms   correct={correct}")
+        results[key] = dict(ms=ms, correct=correct)
+    results["flat_take_rows"] = results[f"flat_take_rows/{designs[0]}"]
     return results
 
 

@@ -32,10 +32,12 @@ def gather_library():
             ptr, ptr]
         lib.multi_warp_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr, ptr]
         lib.flat_take_launch.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr]
-        lib.flat_take_rows_launch.argtypes = [ptr, i32, ptr, i32, i32, ptr,
-                                              ptr]
+        lib.flat_take_rows_launch.argtypes = [ptr, i32, ptr, i32, i32, i32,
+                                              ptr, ptr]
+        lib.flat_take_rows_cluster_bytes.argtypes = [i32]
         for fn in (lib.take_along_axis_launch, lib.multi_warp_launch,
-                   lib.flat_take_launch, lib.flat_take_rows_launch):
+                   lib.flat_take_launch, lib.flat_take_rows_launch,
+                   lib.flat_take_rows_cluster_bytes):
             fn.restype = i32
         _library = built
     return _library
@@ -157,7 +159,7 @@ def multi_warp(img, idxr, idxc, S=16):
 multi_warp.launches = 0
 
 
-def _flat(wrapper, img, idx, reference, launch_name):
+def _flat(wrapper, img, idx, reference, launch_name, *options):
     name = wrapper.__name__
     _check(name, img, idx)
     if idx.dim() != 2:
@@ -169,7 +171,7 @@ def _flat(wrapper, img, idx, reference, launch_name):
     launch = getattr(gather_library().lib, launch_name)
     with torch.cuda.device(img.device):
         _launch(name, launch(img.data_ptr(), img.numel(), idx.data_ptr(), S,
-                             N, out.data_ptr(), _stream()))
+                             N, *options, out.data_ptr(), _stream()))
     wrapper.launches += 1
     return out
 
@@ -180,11 +182,29 @@ def flat_take(img, idx):
                  "flat_take_launch")
 
 
-def flat_take_rows(img, idx):
+# flat_take_rows' designs (csrc/gather_probes.cu): "stream" gathers from
+# L2, 16 gathers in flight a thread; "cluster" from an image copy held in
+# the shared memory of a cluster of 8 blocks
+FLAT_TAKE_ROWS_DESIGNS = ("stream", "cluster")
+FLAT_TAKE_ROWS_DEFAULT = "stream"
+
+
+def flat_take_rows(img, idx, design=FLAT_TAKE_ROWS_DEFAULT):
     """``kernel_taa``: the gather of :func:`flat_take` through
-    take_along_axis (wrap and NaN), eight index rows at a time."""
+    take_along_axis (wrap and NaN), elementwise over the S*N indices.
+    ``design`` is one of FLAT_TAKE_ROWS_DESIGNS; "cluster" refuses an
+    image larger than a cluster's shared memory (8 x 227 KB)."""
+    if design not in FLAT_TAKE_ROWS_DESIGNS:
+        raise ValueError(f"flat_take_rows: no design {design!r}")
+    if (design == "cluster" and img.device.type == "cuda"
+            and gather_library().lib.flat_take_rows_cluster_bytes(
+                img.numel()) == 0):
+        raise ValueError(f"flat_take_rows(design='cluster'): an image of "
+                         f"{img.numel()} floats does not fit in the shared "
+                         "memory of a cluster of 8 blocks (8 x 227 KB)")
     return _flat(flat_take_rows, img, idx, flat_take_rows_reference,
-                 "flat_take_rows_launch")
+                 "flat_take_rows_launch",
+                 FLAT_TAKE_ROWS_DESIGNS.index(design))
 
 
 flat_take.launches = 0

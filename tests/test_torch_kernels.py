@@ -133,7 +133,7 @@ def test_probe_kernels_against_plain(case, S):
     args = tensors(arrays, device="cuda")
     for variant in probes.COPY_VARIANTS:
         before = probes.ssd_copy_floor.launches
-        out = probes.ssd_copy_floor(args[0], *variant)
+        out = probes.ssd_copy_floor(args[0], variant)
         torch.cuda.synchronize()
         assert probes.ssd_copy_floor.launches == before + 1
         assert torch.equal(out, probes.ssd_copy_floor_reference(args[0]))
@@ -157,8 +157,9 @@ def test_probe_kernels_against_plain(case, S):
 @pytest.mark.cuda
 def test_probe_kernels_refuse():
     """On the card: ssd_par refuses an S whose error slab exceeds a
-    block's shared memory, and the vector variants a W they cannot
-    tile."""
+    block's shared memory, the copy floor's float4 variant a W it cannot
+    tile and its bulk-copy variants an H * W that is not a multiple of 4
+    (the copies need 16-byte aligned planes)."""
     cuda_or_skip()
     from tadataka_torch.probes import exp_ssd as probes
     H, W = 4, 32
@@ -169,7 +170,56 @@ def test_probe_kernels_refuse():
     with pytest.raises(ValueError, match="shared memory"):
         probes.ssd_par(V, K, mlo, mhi)
     with pytest.raises(RuntimeError, match="launch failed"):
-        probes.ssd_copy_floor(V[:, :, :30].contiguous(), vec=4)
+        probes.ssd_copy_floor(V[:, :, :30].contiguous(), ("threads", 4, 8))
+    odd = torch.rand((8, 3, 31), device="cuda")
+    for variant in probes.COPY_VARIANTS:
+        if variant[0] == "bulk":
+            with pytest.raises(RuntimeError, match="launch failed"):
+                probes.ssd_copy_floor(odd, variant)
+    assert torch.equal(probes.ssd_copy_floor(odd, ("threads", 1, 8)),
+                       probes.ssd_copy_floor_reference(odd))
+
+
+def test_copy_floor_variants_on_cpu():
+    """On CPU tensors every copy-floor variant returns the plain
+    version's bits, at any H * W, and counts no launch; an unknown
+    variant raises."""
+    from tadataka_torch.probes import exp_ssd as probes
+    V = torch.from_numpy(
+        np.random.default_rng(2).random((5, 13, 37)).astype(np.float32))
+    before = probes.ssd_copy_floor.launches
+    for variant in probes.COPY_VARIANTS:
+        assert torch.equal(probes.ssd_copy_floor(V, variant),
+                           probes.ssd_copy_floor_reference(V))
+    assert probes.ssd_copy_floor.launches == before
+    assert probes.COPY_DEFAULT in probes.COPY_VARIANTS
+    with pytest.raises(ValueError, match="no variant"):
+        probes.ssd_copy_floor(V, ("tma", 8, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 5, 16, 48, 128])
+def test_bulk_copy_floor_bit_equal_to_plain(S):
+    """On the card: every bulk-copy variant of the copy floor bit-equal
+    to the plain left-to-right sum (-0.0 kept), with fewer planes than
+    ring stages (S = 1, 5), ragged last tiles (13 x 36) and 480x640, one
+    launch counted per call."""
+    cuda_or_skip()
+    from tadataka_torch.probes import exp_ssd as probes
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    for shape in ((13, 36), (480, 640)):
+        V = torch.rand((S, *shape), generator=gen, device="cuda") - 0.5
+        V[:, 0, :4] = -0.0
+        ref = probes.ssd_copy_floor_reference(V)
+        for variant in probes.COPY_VARIANTS:
+            if variant[0] != "bulk":
+                continue
+            before = probes.ssd_copy_floor.launches
+            out = probes.ssd_copy_floor(V, variant)
+            torch.cuda.synchronize()
+            assert probes.ssd_copy_floor.launches == before + 1
+            assert torch.equal(out.view(torch.int32),
+                               ref.view(torch.int32)), (shape, variant)
 
 
 @pytest.mark.cuda
@@ -284,3 +334,56 @@ def test_gather_kernels_bit_equal_to_plain(shape):
         assert out.device.type == "cuda"
         assert g.same_bits(out, ref), fn.__name__
     assert torch.isnan(calls[0][2]).any() and torch.isnan(calls[4][2]).any()
+
+
+def test_flat_take_rows_designs_on_cpu():
+    """On CPU tensors every flat_take_rows design returns the plain
+    version's bits and counts no launch; an unknown design raises."""
+    from tadataka_torch.probes import gather as g
+    img, idx = (torch.from_numpy(x) for x in gather_case((5, 7), S=3))
+    before = g.flat_take_rows.launches
+    for design in g.FLAT_TAKE_ROWS_DESIGNS:
+        assert g.same_bits(g.flat_take_rows(img, idx, design=design),
+                           g.flat_take_rows_reference(img, idx))
+    assert g.flat_take_rows.launches == before
+    assert g.FLAT_TAKE_ROWS_DEFAULT in g.FLAT_TAKE_ROWS_DESIGNS
+    with pytest.raises(ValueError, match="no design"):
+        g.flat_take_rows(img, idx, design="tiles")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["stream", "cluster"])
+@pytest.mark.parametrize("S", [1, 7, 20])
+@pytest.mark.parametrize("N", [1001, 1002, 1003])
+def test_flat_take_rows_odd_sizes(N, S, design):
+    """On the card: flat_take_rows bit-equal to its plain version, NaN in
+    the same places, when S * N is not a multiple of 4 or 8 (row starts
+    off the 16-byte grid, a scalar tail), on a 37x53 image with planted
+    edge indices; one launch counted per call."""
+    cuda_or_skip()
+    from tadataka_torch.probes import gather as g
+    img, idx = gather_case((37, 53), S=S)
+    img = torch.tensor(img, device="cuda")
+    idx = torch.tensor(np.resize(idx, (S, N)), device="cuda")
+    before = g.flat_take_rows.launches
+    out = g.flat_take_rows(img, idx, design=design)
+    torch.cuda.synchronize()
+    assert g.flat_take_rows.launches == before + 1
+    ref = g.flat_take_rows_reference(img, idx)
+    assert torch.isnan(ref).any()
+    assert g.same_bits(out, ref)
+
+
+@pytest.mark.cuda
+def test_flat_take_rows_cluster_refuses_a_large_image():
+    """On the card: the "cluster" design refuses an image that 8 blocks'
+    shared memory cannot hold; "stream" takes it."""
+    cuda_or_skip()
+    from tadataka_torch.probes import gather as g
+    img = torch.rand((500, 1000), device="cuda")
+    idx = torch.randint(0, img.numel(), (2, 1000), device="cuda",
+                        dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not fit"):
+        g.flat_take_rows(img, idx, design="cluster")
+    assert g.same_bits(g.flat_take_rows(img, idx, design="stream"),
+                       g.flat_take_rows_reference(img, idx))

@@ -39,6 +39,27 @@ def test_copy_floor_matches_jnp_sum(S):
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("S, shape", [(1, (12, 40)), (1, (13, 37)),
+                                      (2, (7, 9)), (5, (13, 37))])
+def test_copy_floor_small_s_and_odd_sizes_match_jnp_sum(S, shape):
+    """The sizes the bulk-copy floor's tests run at (one plane, fewer
+    planes than ring stages) and the sizes it refuses on the card (H * W
+    % 4 != 0), for the plain version: bit-equal to ``_copy_kernel``'s
+    body in jnp (acc = V[0], then acc + V[s] in order, so -0.0 stays
+    -0.0), and within 1e-6 relative of ``jnp.sum`` (whose +0.0 start
+    turns a sum of -0.0 into +0.0)."""
+    V = np.random.default_rng(S).random((S, *shape)).astype(np.float32)
+    V[:, 0, :3] = -0.0
+    port = ssd_copy_floor_reference(torch.from_numpy(V)).numpy()
+    body = jnp.asarray(V[0])
+    for s in range(1, S):
+        body = body + jnp.asarray(V[s])
+    assert np.array_equal(port.view(np.int32),
+                          np.asarray(body).view(np.int32))
+    assert np.signbit(port[0, :3]).all()
+    np.testing.assert_allclose(port, np.asarray(jnp.sum(V, 0)), rtol=1e-6)
+
+
 @pytest.mark.parametrize("S", [16, 32])
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_serial_matches_xla(case, S):
