@@ -5,21 +5,25 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
 all at once), checks each against its plain PyTorch version on the
-card, drives the SSD probes' entry point (``tadataka_torch.probes.
-exp_ssd``) and the gather probes' (``tadataka_torch.probes.
-dynamic_gather`` and ``flat_gather``), compares the port on the CPU and
-on the card stage by stage and over a short sequence, then drives
-``SemiDenseVO.estimate`` at 480x640 on three paths: the homography sweep
-over 12 synthetic frames, the rectified sweep over 10 frames of a
-lateral trajectory, and the scattered estimator (``depth_update=
-"scatter"``) over 5 frames, each checked against ground truth.  Last it
-runs DVO on the CPU and on the card on the same inputs and drives
-``DvoTrajectory`` over 8 frames of a TUM RGB-D freiburg1 scene at
-480x640, exported and read back through the TUM loader, gated on its
-trajectory error.  Every phase prints lines; any failure ends the script
-with a traceback and a non-zero exit.  The last lines are the card's
-name and power limit, a JSON line of per-kernel results, and a JSON
-line ``{"ok": true, "device": {...}}``.
+card (both designs of the SSD search, "ring" and "thread", bit for
+bit, each timed beside the bound at its inputs), drives the SSD probes'
+entry point (``tadataka_torch.probes.exp_ssd``) and the gather probes'
+(``tadataka_torch.probes.dynamic_gather`` and ``flat_gather``),
+compares the port on the CPU and on the card stage by stage and over a
+short sequence, then drives ``SemiDenseVO.estimate`` at 480x640 on
+three paths: the homography sweep over 12 synthetic frames, the
+rectified sweep over 10 frames of a lateral trajectory, and the
+scattered estimator (``depth_update="scatter"``) over 5 frames, each
+checked against ground truth.  The SSD searches of one steady frame of
+the first two are recorded as the main path made them, and both
+designs are checked and timed on them.  Last it runs DVO on the CPU and
+on the card on the same inputs and drives ``DvoTrajectory`` over 8
+frames of a TUM RGB-D freiburg1 scene at 480x640, exported and read
+back through the TUM loader, gated on its trajectory error.  Every
+phase prints lines; any failure ends the script with a traceback and a
+non-zero exit.  The last lines are the card's name and power limit, a
+JSON line of per-kernel results, and a JSON line ``{"ok": true,
+"device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, the
 script exits non-zero and prints no result.
@@ -216,8 +220,10 @@ def phase_build():
     for source, lib in zip(sources, built):
         log("build", f"{source} -> {lib.path.name} in {lib.seconds:.2f} s")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", "ptxas: " + line.strip())
+            if "Compiling entry function" in line:
+                log("build", "ptxas: " + line.split("'")[1][:110])
+            elif "registers" in line or "spill" in line:
+                log("build", "ptxas:   " + line.strip())
     log("build", f"all {len(sources)} built in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -243,54 +249,6 @@ def warm_up(seconds=2.0):
         torch.cuda.synchronize()
 
 
-def ssd_inputs(S, H, W, seed):
-    """Random plane volume with ~20% invalid lanes, all-invalid rows,
-    narrow window ranges on half the pixels, a planted key patch and
-    exact planted ties, on the card."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    dev = "cuda"
-    M = S - 4
-    V = torch.rand((S, H, W), generator=gen, device=dev)
-    V[torch.rand((S, H, W), generator=gen, device=dev) < 0.2] = -1.0
-    K = torch.rand((5, H, W), generator=gen, device=dev)
-    V[6:11, :, : W // 4] = K[:, :, : W // 4]           # planted at m = 6
-    V[S - 5:, :, : W // 8] = K[:, :, : W // 8]         # ... and tied at M-1
-    V[:, :3] = -1.0                                    # all-invalid pixels
-    mlo = torch.zeros((H, W), device=dev)
-    mhi = torch.full((H, W), float(M - 1), device=dev)
-    narrow = torch.rand((H, W), generator=gen, device=dev) < 0.5
-    lo = torch.randint(0, M, (H, W), generator=gen, device=dev).float()
-    width = torch.randint(0, 5, (H, W), generator=gen, device=dev).float()
-    mlo = torch.where(narrow, lo, mlo)
-    mhi = torch.where(narrow, lo + width, mhi)
-    return V, K, mlo, mhi
-
-
-def rect_inputs(S, H, W, seed):
-    """A rect-plan-shaped search on the card: V is ``_shift_stack`` of one
-    image shifted by a fractional disparity (-1 fill columns), K the key
-    template of that image at another disparity, and pixels whose
-    template leaves the image, plus a tenth of the others, get the
-    sentinel bounds mlo = 1e9 / mhi = -1e9 (sweep_rect.py:207-208)."""
-    from tadataka_torch.core.shiftwarp import const_shift_cols
-    from tadataka_torch.vo.semi_dense.sweep_rect import (
-        _key_template, _shift_stack)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    image = torch.rand((H, W), generator=gen, device="cuda")
-    base = const_shift_cols(image, torch.tensor(-7.25, device="cuda"))
-    V = _shift_stack(base, S, fill=-1.0)
-    K = _key_template(const_shift_cols(image, torch.tensor(
-        -float(S // 3), device="cuda")))
-    M = S - 4
-    lo = torch.randint(0, M, (H, W), generator=gen, device="cuda").float()
-    mlo, mhi = lo - 8.0, lo + 8.0
-    off = (torch.rand((H, W), generator=gen, device="cuda") < 0.1) \
-        | ~torch.all(K >= 0.0, dim=0)
-    mlo = torch.where(off, 1e9, mlo)
-    mhi = torch.where(off, -1e9, mhi)
-    return V, K, mlo, mhi
-
-
 def compare_search(name, out, ref):
     """Hold a search kernel's (best, ec, ep, en) against another's:
     bit-equal, or best equal on >= 0.9999 of pixels with the errors
@@ -307,41 +265,116 @@ def compare_search(name, out, ref):
     return bit_equal, share, err
 
 
-def phase_kernel_vs_plain():
-    """The SSD kernel against its plain version on the same tensors, on
-    random stacks up to the rect plan's 256 planes and on rect-shaped
-    stacks."""
-    from tadataka_torch.probes.exp_ssd import cuda_ms
+def search_work(V, K, mlo, mhi, tile):
+    """What one SSD search needs at these inputs: the share of windows
+    inside their bounds, the planes a ring tile of ``tile`` pixels reads
+    (the union of its pixels' ranges, mean over tiles), and the bound's
+    bytes, 4 B a float of planes m_lo .. m_hi + 4 and K where the range
+    is not empty, mlo, mhi and the four outputs everywhere (a pixel with
+    no window needs no sample to get its answer), and float operations,
+    24 a window in bounds."""
+    import torch.nn.functional as F
+    from tadataka_torch.vo.semi_dense.sweep import ssd_window_bounds
+    S = V.shape[0]
+    lo, hi = (x.ravel().long() for x in ssd_window_bounds(mlo, mhi, S))
+    live = lo <= hi
+    windows = torch.where(live, hi - lo + 1, 0).sum().item()
+    planes = torch.where(live, hi - lo + 5, 0).sum().item()
+    N = lo.numel()
+    n_tiles = -(-N // tile)
+    none = 1 << 30
+    tlo = F.pad(torch.where(live, lo, none), (0, n_tiles * tile - N),
+                value=none).view(n_tiles, tile).min(1).values
+    thi = F.pad(torch.where(live, hi, -none), (0, n_tiles * tile - N),
+                value=-none).view(n_tiles, tile).max(1).values
+    tile_planes = torch.where(tlo <= thi, thi - tlo + 5, 0).float().mean()
+    return dict(share=windows / (N * (S - 4)), tile_planes=tile_planes.item(),
+                n_bytes=4 * (planes + 5 * live.sum().item() + 6 * N),
+                flops=SSD_FLOPS_PER_WINDOW * windows)
+
+
+def check_designs(name, args):
+    """Every design of ssd_search bit-equal to the plain version on
+    ``args``; returns the plain version's outputs."""
     from tadataka_torch.vo.semi_dense.sweep import (
-        ssd_search, ssd_search_reference)
+        SSD_DESIGNS, ssd_search, ssd_search_reference)
+    ref = ssd_search_reference(*args)
+    for design in SSD_DESIGNS:
+        out = ssd_search(*args, design=design)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"ssd_search ({design}) differs from its "
+                                 f"plain version on {name}")
+    return ref
+
+
+def time_search(phase, name, args):
+    """Both designs' and the plain version's times on ``args``, in turns
+    (medians and quartiles of 20 rounds), beside the bound at these
+    inputs; logs one line, returns the numbers."""
+    from tadataka_torch.probes.exp_ssd import cuda_times
+    from tadataka_torch.vo.semi_dense.sweep import (
+        SSD_DESIGNS, ring_config, ssd_search, ssd_search_reference)
+    S, H, W = args[0].shape
+    plan = ring_config(S, H, W)
+    work = search_work(*args, plan["tile"])
+    fns = {d: lambda d=d: ssd_search(*args, design=d) for d in SSD_DESIGNS}
+    fns["plain"] = lambda: ssd_search_reference(*args)
+    times = cuda_times(fns)
+    ms = {d: statistics.median(times[d]) for d in SSD_DESIGNS}
+    plain_ms = statistics.median(times["plain"])
+    spread = {d: statistics.quantiles(times[d], n=4)[::2]
+              for d in SSD_DESIGNS}
+    bound_ms, bound_by = bound(work["n_bytes"], work["flops"])
+    full_ms = bound(*ssd_search_bytes_flops(S, H, W))[0]
+    log(phase, f"{name} S={S} {H}x{W}: ring {ms['ring']:.4f} ms (quartiles "
+        f"{spread['ring'][0]:.4f}-{spread['ring'][1]:.4f}), thread "
+        f"{ms['thread']:.4f} ms ({spread['thread'][0]:.4f}-"
+        f"{spread['thread'][1]:.4f}), plain {plain_ms:.4f} ms, timed in "
+        f"turns; windows in bounds "
+        f"{work['share']:.4f}, a {plan['tile']}-px tile reads "
+        f"{work['tile_planes']:.1f} of {S} planes; bound at these inputs "
+        f"{bound_ms:.4f} ms ({bound_by}; ring {bound_ms / ms['ring']:.3f} of "
+        f"it, thread {bound_ms / ms['thread']:.3f}), reading all of V "
+        f"{full_ms:.4f} ms; "
+        + (f"ring grid {plan['grid']} x {plan['threads']} threads "
+           f"({plan['blocks_per_sm']} an SM), {plan['shared_bytes']} B "
+           "shared a block" if plan["ring"] else
+           "H*W % 4 != 0: \"ring\" runs the thread kernel"))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, **work)
+
+
+def phase_kernel_vs_plain():
+    """Both designs of the SSD search bit-equal to the plain version on
+    the same tensors, on random stacks up to the rect plan's 256 planes,
+    at odd sizes (H*W % 4 of 3 and 1, where "ring" runs the thread
+    kernel) and on rect-shaped stacks, each timed beside the bound at its
+    inputs; the ring kernel's SASS must hold its bulk copies (UBLKCP)."""
+    from tadataka_torch.probes.ssd_ring import rect_inputs, ssd_inputs
+    from tadataka_torch.vo.semi_dense.sweep import ring_config, ssd_library
     results = {}
-    max_abs_err = 0.0
-    cases = [("random", S, H, W) for S, H, W in (
-        (32, 480, 640), (48, 480, 640), (128, 480, 640), (256, 480, 640),
-        (48, 479, 640))] + [("rect", 208, 480, 640), ("rect", 256, 480, 640)]
+    cases = [("random", S, *VGA) for S in (32, 48, 128, 256)] + [
+        ("random", 48, 479, 640), ("random", 48, 479, 641),
+        ("random", 16, 37, 41), ("rect", 208, *VGA), ("rect", 256, *VGA)]
     log_clocks("kernel", "idle")
     warm_up()
     log_clocks("kernel", "before")
     for kind, S, H, W in cases:
         make = ssd_inputs if kind == "random" else rect_inputs
         args = make(S, H, W, seed=S * 1000 + H)
-        ref = ssd_search_reference(*args)
-        bit_equal, share, err = compare_search(
-            f"ssd_search, {kind} S={S} {H}x{W}", ssd_search(*args), ref)
-        max_abs_err = max(max_abs_err, err)
-        matches = (ref[0] >= 0).float().mean().item()
-        ms = cuda_ms(lambda: ssd_search(*args))
-        plain_ms = cuda_ms(lambda: ssd_search_reference(*args))
-        v_bytes = S * H * W * 4
-        log("kernel", f"ssd_search {kind} S={S} {H}x{W}: "
-            f"{'bit-equal' if bit_equal else 'within tolerance'} to plain "
-            f"(best equal on {share:.6f} of pixels, max |d| {err}); "
-            f"{matches:.3f} of pixels match; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, V read {v_bytes / 1e6:.1f} MB -> "
-            f"{v_bytes / ms / 1e6:.1f} GB/s")
-        results[(kind, S, H, W)] = (ms, plain_ms)
+        ref = check_designs(f"{kind} S={S} {H}x{W}", args)
+        log("kernel", f"ssd_search {kind} S={S} {H}x{W}: ring and thread "
+            f"bit-equal to plain; {(ref[0] >= 0).float().mean().item():.3f} "
+            "of pixels match")
+        results[(kind, S, H, W)] = time_search("kernel", kind, args)
     log_clocks("kernel", "after")
-    return results, max_abs_err
+    lines = kernel_sass(ssd_library(), "ssd_search_ring_kernel")
+    counts = {op: sum(op in line for line in lines)
+              for op in ("UBLKCP", "UTMALDG", "FFMA", "MUFU")}
+    log("kernel", f"SASS of the ring kernel (consumers, planes a stage, "
+        f"stages, blocks an SM: {ring_config(48, *VGA)['shape']}): {counts}")
+    assert counts["UBLKCP"] > 0 and counts["UTMALDG"] > 0, counts
+    return results
 
 
 def phase_probes():
@@ -359,6 +392,7 @@ def phase_probes():
     (UBLKCP).  Returns the kernels' JSON entries and the measured floor
     in GB/s."""
     from tadataka_torch.probes import exp_ssd as probes
+    from tadataka_torch.probes.ssd_ring import ssd_inputs
     from tadataka_torch.vo.semi_dense.sweep import ssd_search
     wrappers = (probes.ssd_copy_floor, probes.ssd_serial, probes.ssd_par)
     for fn in wrappers:
@@ -695,12 +729,68 @@ SLICE_GATES = dict(success=0.5 * 0.099, err=1.25 * 1.84, cos=0.598 - 0.1)
 RECT_GATES = dict(success=0.5 * 0.098, err=1.25 * 1.159, cos=0.798 - 0.1)
 
 
+class SearchCapture:
+    """While active, records (clones of) the inputs of every ssd_search
+    call the main path makes, or with ``record=False`` records nothing;
+    ``design`` (if given) is passed to every call.  sweep.py calls
+    ssd_search as its module's global and sweep_rect.py under the name
+    it imported, so both names are replaced for the duration by a
+    callable that records and calls the real function; the main path's
+    code is untouched.  The real function counts its launches on
+    ``ssd_search.launches``, a lookup of its module's global, so the
+    callable forwards that attribute."""
+
+    def __init__(self, design=None, record=True):
+        self.calls = [] if record else None
+        self._design = design
+
+    def __enter__(self):
+        import tadataka_torch.vo.semi_dense.sweep as sweep
+        import tadataka_torch.vo.semi_dense.sweep_rect as sweep_rect
+        self._modules = (sweep, sweep_rect)
+        self._real = sweep.ssd_search
+        recording = _Recording(self._real, self.calls, self._design)
+        for module in self._modules:
+            module.ssd_search = recording
+        return self
+
+    def __exit__(self, *exc):
+        for module in self._modules:
+            module.ssd_search = self._real
+
+
+class _Recording:
+    """ssd_search that first clones its inputs into ``calls`` (unless
+    None) and runs ``design`` (unless None)."""
+
+    def __init__(self, real, calls, design):
+        self._real = real
+        self._calls = calls
+        self._design = design
+
+    def __call__(self, V, K, mlo, mhi, **kwargs):
+        if self._calls is not None:
+            self._calls.append(tuple(x.clone() for x in (V, K, mlo, mhi)))
+        if self._design is not None:
+            kwargs["design"] = self._design
+        return self._real(V, K, mlo, mhi, **kwargs)
+
+    @property
+    def launches(self):
+        return self._real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self._real.launches = n
+
+
 def drive(phase, frames, vo, device):
     """Drive ``vo.estimate`` over the frames with ssd_search's count at 0
     before and read after; log the plans, the step time and the quality,
     check the maps are finite and that the bootstrap frame improved the
     initial map, then time the stages of the last frame.  Returns
-    (states, launches, plans of frames 1..n-1)."""
+    (states, launches, plans of frames 1..n-1, quality, the ssd_search
+    inputs of the last frame's update)."""
     from tadataka_torch.flags import Flag
     from tadataka_torch.vo.semi_dense.sweep import ssd_search
     last_inputs = {}
@@ -744,9 +834,9 @@ def drive(phase, frames, vo, device):
         f"{cos:.4f}")
     log(phase, f"last frame's flags: {shares}")
     assert boot_err < 0.25 * init_err, (boot_err, init_err)
-    stage_times(phase, vo, frame=frames[-1], device=device,
-                plan=used[-1] if used else None, **last_inputs)
-    return states, launches, plans, (success, err, cos)
+    searches = stage_times(phase, vo, frame=frames[-1], device=device,
+                           plan=used[-1] if used else None, **last_inputs)
+    return states, launches, plans, (success, err, cos), searches
 
 
 def check_gates(quality, gates):
@@ -765,12 +855,13 @@ def phase_slice(device="cuda", shape=VGA, focal=VGA_FOCAL):
                            trajectory(N_FRAMES))
     frames = [ds[i] for i in range(N_FRAMES)]
     vo = make_vo(shape, focal, device, metrics=PlanLog())
-    _, launches, plans, quality = drive("slice", frames, vo, device)
+    _, launches, plans, quality, searches = drive("slice", frames, vo, device)
     n_updates = N_FRAMES - 1
     assert [p["plan_path"] for p in plans] == ["tent"] * n_updates, plans
     assert launches == n_updates, (launches, n_updates)
+    assert len(searches) == 1, len(searches)
     check_gates(quality, SLICE_GATES)
-    return launches
+    return launches, searches
 
 
 def phase_rect(device="cuda", shape=VGA, focal=VGA_FOCAL):
@@ -791,7 +882,8 @@ def phase_rect(device="cuda", shape=VGA, focal=VGA_FOCAL):
     frames = [ds[i] for i in range(n)]
     vo = make_vo(shape, focal, device, metrics=PlanLog())
     vo.pose_drain_interval = n
-    states, launches, plans, quality = drive("rect", frames, vo, device)
+    states, launches, plans, quality, searches = drive("rect", frames, vo,
+                                                       device)
     log("rect", f"SUCCESS share per frame (frames 1-{n - 1}): " + ", ".join(
         f"{p['plan_path']} {(s.flag_map == 0).float().mean().item():.3f}"
         for s, p in zip(states[1:], plans)))
@@ -801,8 +893,40 @@ def phase_rect(device="cuda", shape=VGA, focal=VGA_FOCAL):
     expected = sum(min(k, vo.history_size) if path == "rect" else 1
                    for k, path in enumerate(paths, start=1))
     assert launches == expected, (launches, expected, paths)
+    assert paths[-1] == "rect" and len(searches) == min(
+        n - 1, vo.history_size), (paths, len(searches))
     check_gates(quality, RECT_GATES)
-    return launches
+    return launches, searches
+
+
+def phase_captured(searches):
+    """The ssd_search inputs of one steady frame of the tent and the rect
+    drive, as the main path gave them: both designs bit-equal to the
+    plain version on each, and per search and per frame each design's
+    time beside the bound at those inputs, the share of windows in
+    bounds and the planes a ring tile reads.  Returns {path: frame
+    totals}."""
+    from tadataka_torch.vo.semi_dense.sweep import SSD_DESIGNS
+    log_clocks("captured", "before")
+    totals = {}
+    for path, calls in searches.items():
+        frame = dict(ms=dict.fromkeys(SSD_DESIGNS, 0.0), bound_ms=0.0)
+        for i, args in enumerate(calls):
+            check_designs(f"the {path} frame's search {i}", args)
+            r = time_search("captured", f"{path} frame, search {i} of "
+                            f"{len(calls)} (ring, thread bit-equal to plain)",
+                            args)
+            for d in SSD_DESIGNS:
+                frame["ms"][d] += r["ms"][d]
+            frame["bound_ms"] += r["bound_ms"]
+        log("captured", f"{path} frame, {len(calls)} searches: ring "
+            f"{frame['ms']['ring']:.4f} ms, thread "
+            f"{frame['ms']['thread']:.4f} ms, bound at these inputs "
+            f"{frame['bound_ms']:.4f} ms (ring {frame['bound_ms'] / frame['ms']['ring']:.3f} "
+            f"of it; thread / ring {frame['ms']['thread'] / frame['ms']['ring']:.2f}x)")
+        totals[path] = frame
+    log_clocks("captured", "after")
+    return totals
 
 
 def phase_scatter(device="cuda", shape=VGA, focal=VGA_FOCAL):
@@ -815,7 +939,7 @@ def phase_scatter(device="cuda", shape=VGA, focal=VGA_FOCAL):
     frames = [ds[i] for i in range(n)]
     vo = make_vo(shape, focal, device, metrics=PlanLog(),
                  depth_update="scatter")
-    _, launches, plans, _ = drive("scatter", frames, vo, device)
+    _, launches, plans, _, _ = drive("scatter", frames, vo, device)
     assert [p["plan_path"] for p in plans] == ["scatter"] * (n - 1), plans
     assert launches == 0, launches
 
@@ -862,7 +986,9 @@ def phase_app_gate(device="cuda"):
 def stage_times(phase, vo, prev, prev_image, refs, frame, device, plan):
     """Median ms of each stage of one steady-state frame, calling the
     port's stage functions on that frame's inputs; the update runs the
-    app's plan of that frame (None: the scattered estimator)."""
+    app's plan of that frame (None: the scattered estimator).  Returns the
+    inputs of every ssd_search call of that update, recorded in one
+    untimed call before the timed ones."""
     from tadataka_torch.apps.semi_dense_vo import (
         prepare_image, track, propagate_step, update, to_gray_f32)
     from tadataka_torch.core.rounding import matmul_small
@@ -877,15 +1003,44 @@ def stage_times(phase, vo, prev, prev_image, refs, frame, device, plan):
         cam, T10, prev.depth_map, prev.variance_map, prev.age_map,
         vo.default_depth, vo.default_variance, vo.uncertainty_bias))
     T_wk = matmul_small(prev.pose_wc.T, inv_motion_matrix(T10))
-    ms_update, (d2, v2, flags) = timed(device, lambda: update(
-        cam, vo.params, image, T_wk, refs, age1, d1, v1, plan, False,
-        vo.fuse_prior, vo.n_ref_samples))
+
+    def update_frame():
+        return update(cam, vo.params, image, T_wk, refs, age1, d1, v1, plan,
+                      False, vo.fuse_prior, vo.n_ref_samples)
+
+    with SearchCapture() as capture:
+        update_frame()
+    ms_update, (d2, v2, flags) = timed(device, update_frame)
     ms_reg, _ = timed(device, lambda: regularize(d2, v2, flags))
     path = ("scatter" if plan is None
             else f"{plan.path}, planes {plan.n_planes}")
     log(phase, f"stages of one {tuple(image.shape)} frame, median of 5: "
         f"track {ms_track:.2f} ms, propagate {ms_prop:.2f} ms, update "
         f"{ms_update:.2f} ms ({path}), regularize {ms_reg:.2f} ms")
+    if capture.calls:
+        update_designs(phase, device, update_frame)
+    return capture.calls
+
+
+def update_designs(phase, device, update_frame, rounds=15):
+    """The update of one frame with each design of ssd_search, timed in
+    turns (one call of each a round, after one warm-up call each):
+    logs each design's median and least ms."""
+    from tadataka_torch.vo.semi_dense.sweep import SSD_DESIGNS
+    times = {d: [] for d in SSD_DESIGNS}
+    for r in range(rounds + 1):
+        for d in SSD_DESIGNS:
+            with SearchCapture(design=d, record=False):
+                sync(device)
+                t0 = time.perf_counter()
+                update_frame()
+                sync(device)
+            if r:
+                times[d].append((time.perf_counter() - t0) * 1e3)
+    log(phase, f"update with each ssd_search design, in turns, {rounds} "
+        "rounds: " + ", ".join(
+            f"{d} median {statistics.median(v):.2f} ms (least {min(v):.2f})"
+            for d, v in times.items()))
 
 
 def gather_hard_case(shape, S=None, seed=11):
@@ -908,17 +1063,23 @@ def gather_hard_case(shape, S=None, seed=11):
     return img, indices(H, (H, W)), indices(W, (H, W))
 
 
-def kernel_sass(built, kernel):
-    """The SASS lines of ``kernel`` in a built library, from the
+def sass_sections(built, kernel):
+    """(header, SASS lines) of every function of a built library whose
+    name holds ``kernel`` (each instance of a template), from the
     toolkit's cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(built.path)],
                           capture_output=True, text=True,
                           check=True).stdout
-    sections = sass.split("Function : ")
-    return next(x for x in sections if kernel in x.split("\n", 1)[0]
-                ).splitlines()
+    return [(x.split("\n", 1)[0], x.splitlines())
+            for x in sass.split("Function : ")
+            if kernel in x.split("\n", 1)[0]]
+
+
+def kernel_sass(built, kernel):
+    """The SASS lines of the first function named ``kernel``."""
+    return sass_sections(built, kernel)[0][1]
 
 
 def phase_gather(floor_gbs):
@@ -1213,12 +1374,15 @@ def main():
     sys.path.insert(0, str(ROOT))
     t0 = time.perf_counter()
     phase_build()
-    timings, max_abs_err = phase_kernel_vs_plain()
+    timings = phase_kernel_vs_plain()
     probe_entries, floor_gbs = phase_probes()
     gather_entries = phase_gather(floor_gbs)
     phase_cpu_vs_gpu()
-    launches = phase_slice()
-    launches += phase_rect()
+    launches, tent_searches = phase_slice()
+    rect_launches, rect_searches = phase_rect()
+    launches += rect_launches
+    phase_captured({"tent": tent_searches, "rect": rect_searches})
+    del tent_searches, rect_searches
     phase_scatter()
     phase_app_gate()
     from tadataka_torch.dataset import export_tum_scene
@@ -1230,17 +1394,18 @@ def main():
             f"{time.perf_counter() - t_export:.1f} s")
         phase_dvo_cpu_gpu(tum_root)
         phase_dvo(tum_root)
-    ms, plain_ms = timings[("random", 48, 480, 640)]
+    at48 = timings[("random", 48, 480, 640)]
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s; "
-        "ms/plain_ms below: ssd_search at S=48, the SSD probes at S=32, "
-        "the gather probes on their scripts' inputs, 480x640; launches: "
-        "the slice and rect phases (ssd_search), the probe runs (the "
-        "probes); bound_ms at the data sheet's 3.35 TB/s and 67 TFLOP/s")
+        "ms/plain_ms below: ssd_search (its ring design) at S=48, the SSD "
+        "probes at S=32, the gather probes on their scripts' inputs, "
+        "480x640; launches: the slice and rect phases (ssd_search), the "
+        "probe runs (the probes); bound_ms at the data sheet's 3.35 TB/s "
+        "and 67 TFLOP/s, ssd_search's at what its inputs need")
     print(smi)
     print(json.dumps({"kernels": [kernel_entry(
-        "ssd_search", SSD_SOURCE, SSD_REPLACES, launches, max_abs_err, ms,
-        plain_ms, *ssd_search_bytes_flops(48, *VGA))]
-        + probe_entries + gather_entries}))
+        "ssd_search", SSD_SOURCE, SSD_REPLACES, launches, 0.0,
+        at48["ms"]["ring"], at48["plain_ms"], at48["n_bytes"],
+        at48["flops"])] + probe_entries + gather_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -47,11 +47,13 @@ def _nvcc():
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build(source: Path) -> BuiltLibrary:
-    """Compile ``source`` (if its hashed library is absent) and load it."""
+def build(source: Path, defines=()) -> BuiltLibrary:
+    """Compile ``source`` (if its hashed library is absent) and load it;
+    ``defines``: (name, value) pairs passed to nvcc as -Dname=value."""
     source = Path(source)
+    flags = NVCC_FLAGS + tuple(f"-D{name}={value}" for name, value in defines)
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
@@ -59,7 +61,7 @@ def build(source: Path) -> BuiltLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(source)],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr

@@ -234,12 +234,22 @@ ssd_par.launches = 0
 
 # ----------------------------------------------------------- on the card
 
+def _keep_busy(cycles=1 << 20):
+    """Keep the card busy for ~0.5 ms before a timed call starts, so that
+    the call's host-side work (argument checks, the launch) is done
+    before the card reaches its start event and only device time is
+    measured."""
+    torch.cuda._sleep(cycles)
+
+
 def cuda_ms(fn, repeats=20, flush_bytes=256 << 20, clean=False):
     """Median device ms of ``fn`` over ``repeats`` runs, each timed with
     CUDA events after the L2 cache is flushed by writing a larger
     buffer (the SSD volume is read cold on the main path).  That leaves
     L2 full of dirty lines, which a read must write back as it evicts
-    them; ``clean`` flushes by reading the buffer instead."""
+    them; ``clean`` flushes by reading the buffer instead.  The card is
+    kept busy before each start event, so the host's part of the call
+    is not timed."""
     flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
     fn()
     times = []
@@ -248,6 +258,7 @@ def cuda_ms(fn, repeats=20, flush_bytes=256 << 20, clean=False):
             flush.sum()
         else:
             flush.zero_()
+        _keep_busy()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -256,6 +267,30 @@ def cuda_ms(fn, repeats=20, flush_bytes=256 << 20, clean=False):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_times(fns, repeats=20, flush_bytes=256 << 20):
+    """Device ms of each function of the dict ``fns``, ``repeats`` times,
+    timed in turns: every round flushes L2 by writing a larger buffer
+    before each call (as :func:`cuda_ms` does) and times every function
+    once, so that a drift of the card's clock or power during the run
+    reaches all of them alike.  Returns {name: [ms, ...]}."""
+    flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            flush.zero_()
+            _keep_busy()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return times
 
 
 def probe_inputs(S, H, W, seed=0):

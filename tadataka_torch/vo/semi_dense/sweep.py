@@ -139,46 +139,81 @@ def ssd_search_reference(V, K, mlo, mhi):
     return best, ec, ep, en
 
 
+def ssd_window_bounds(mlo, mhi, S):
+    """(m_lo, m_hi) int32: the windows max(0, ceil(mlo)) .. min(M - 1,
+    floor(mhi)) that the search may score, M = S - 4, clamped in float
+    before the conversion; NaN in either bound gives (M, -1).  The range
+    is empty where m_lo > m_hi.  Window m of a pixel is in range exactly
+    where ``m >= mlo and m <= mhi`` holds in float32, so the pixel's
+    outputs depend only on planes m_lo .. m_hi + 4.  The ring kernel
+    computes the same bounds (csrc/ssd_search.cu, ``window_bounds``)."""
+    M = S - N_KEY_SAMPLES + 1
+    nan = torch.isnan(mlo) | torch.isnan(mhi)
+    lo = torch.clamp(torch.ceil(mlo), 0.0, float(M))
+    hi = torch.clamp(torch.floor(mhi), -1.0, float(M - 1))
+    return (torch.where(nan, float(M), lo).to(torch.int32),
+            torch.where(nan, -1.0, hi).to(torch.int32))
+
+
 _SSD_SOURCE = Path(__file__).parent / "csrc" / "ssd_search.cu"
 _ssd_library = None
+
+SSD_DESIGNS = ("ring", "thread")
+
+
+def bind_ssd_library(built):
+    """Declare the C signatures of a built ``csrc/ssd_search.cu``."""
+    import ctypes
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    launch = [ptr] * 4 + [i32] * 3 + [ptr] * 5
+    built.lib.ssd_search_launch.argtypes = launch
+    built.lib.ssd_search_ring_launch.argtypes = launch
+    built.lib.ssd_search_ring_config.argtypes = [i32] * 3 + [ptr]
+    for fn in (built.lib.ssd_search_launch,
+               built.lib.ssd_search_ring_launch,
+               built.lib.ssd_search_ring_config):
+        fn.restype = i32
+    return built
 
 
 def ssd_library():
     """Build (at first use) and load the SSD search kernel library."""
     global _ssd_library
     if _ssd_library is None:
-        import ctypes
         from tadataka_torch.cuda_build import build
-        built = build(_SSD_SOURCE)
-        fn = built.lib.ssd_search_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-        _ssd_library = built
+        _ssd_library = bind_ssd_library(build(_SSD_SOURCE))
     return _ssd_library
 
 
-def ssd_search(V, K, mlo, mhi):
-    """Masked normalized-SSD window search over the plane volume.
+def ring_config(S, H, W, library=None):
+    """The ring kernel's launch plan on the current card: a dict of the
+    tile size P (pixels), tiles, grid, blocks an SM, dynamic shared
+    memory a block (bytes), threads a block, ``ring``: 1 if the shape
+    takes the ring (H*W % 4 == 0; else the "thread" kernel runs), and
+    ``shape``: the compiled (consumer threads, planes a stage, stages,
+    blocks an SM at most).  ``library``: a build of the source other than
+    the package's (the shape sweep's)."""
+    import ctypes
+    out = (ctypes.c_int * 11)()
+    lib = (library or ssd_library()).lib
+    status = lib.ssd_search_ring_config(S, H, W, out)
+    if status != 0:
+        raise RuntimeError(f"ssd_search ring: no plan for S={S} {H}x{W}: "
+                           f"CUDA error {status}")
+    plan = dict(zip(("tile", "tiles", "grid", "blocks_per_sm",
+                     "shared_bytes", "threads", "ring"), out[:7]))
+    plan["shape"] = tuple(out[7:])
+    return plan
 
-    V (S,H,W) float32 with -1 = invalid sample, K (5,H,W) key patch,
-    mlo/mhi (H,W) valid window bounds.  Returns (best (H,W) int32, -1 =
-    no valid window; err_center, err_prev, err_next (H,W) float32).
 
-    A CUDA tensor launches the hand-written kernel (csrc/ssd_search.cu);
-    a CPU tensor runs :func:`ssd_search_reference`.  No fallback: any
-    other input raises.
-    """
-    _check_ssd_inputs(V, K, mlo, mhi)
-    if V.device.type == "cpu":
-        return ssd_search_reference(V, K, mlo, mhi)
-    if V.device.type != "cuda":
-        raise ValueError(f"ssd_search: no kernel for device {V.device}")
-    for name, x in (("V", V), ("K", K), ("mlo", mlo), ("mhi", mhi)):
-        if not x.is_contiguous():
-            raise ValueError(f"ssd_search: {name} must be contiguous")
+def _launch(design, V, K, mlo, mhi, library=None):
+    """Launch one design's kernel on the current stream (``library``: as
+    in :func:`ring_config`); returns its outputs and raises if the launch
+    failed."""
     S, H, W = V.shape
-    fn = ssd_library().lib.ssd_search_launch
+    lib = (library or ssd_library()).lib
+    fn = lib.ssd_search_ring_launch if design == "ring" else \
+        lib.ssd_search_launch
     best = torch.empty((H, W), dtype=torch.int32, device=V.device)
     ec, ep, en = (torch.empty((H, W), dtype=torch.float32, device=V.device)
                   for _ in range(3))
@@ -188,10 +223,41 @@ def ssd_search(V, K, mlo, mhi):
                     mhi.data_ptr(), S, H, W, best.data_ptr(), ec.data_ptr(),
                     ep.data_ptr(), en.data_ptr(), stream)
     if status != 0:
-        raise RuntimeError(f"ssd_search kernel launch failed: CUDA error "
-                           f"{status}")
-    ssd_search.launches += 1
+        raise RuntimeError(f"ssd_search kernel launch failed ({design}): "
+                           f"CUDA error {status}")
     return best, ec, ep, en
+
+
+def ssd_search(V, K, mlo, mhi, design="ring"):
+    """Masked normalized-SSD window search over the plane volume.
+
+    V (S,H,W) float32 with -1 = invalid sample, K (5,H,W) key patch,
+    mlo/mhi (H,W) valid window bounds.  Returns (best (H,W) int32, -1 =
+    no valid window; err_center, err_prev, err_next (H,W) float32).
+
+    A CUDA tensor launches the hand-written kernel (csrc/ssd_search.cu)
+    of ``design``: "ring" (the default: a persistent grid streaming only
+    the planes each tile's bounds allow through a shared-memory ring of
+    TMA copies) or "thread" (one thread per pixel over every plane); both
+    give the same bits.  A tensor map needs H*W % 4 == 0 and inputs on
+    the 16-byte grid, so "ring" runs the "thread" kernel on other inputs.
+    A CPU tensor runs :func:`ssd_search_reference`.  No fallback: any
+    other input, design or failed launch raises.
+    """
+    if design not in SSD_DESIGNS:
+        raise ValueError(f"ssd_search: no design {design!r}; one of "
+                         f"{SSD_DESIGNS}")
+    _check_ssd_inputs(V, K, mlo, mhi)
+    if V.device.type == "cpu":
+        return ssd_search_reference(V, K, mlo, mhi)
+    if V.device.type != "cuda":
+        raise ValueError(f"ssd_search: no kernel for device {V.device}")
+    for name, x in (("V", V), ("K", K), ("mlo", mlo), ("mhi", mhi)):
+        if not x.is_contiguous():
+            raise ValueError(f"ssd_search: {name} must be contiguous")
+    out = _launch(design, V, K, mlo, mhi)
+    ssd_search.launches += 1
+    return out
 
 
 ssd_search.launches = 0   # kernel launches; the CPU path never counts

@@ -250,6 +250,144 @@ def test_ssd_kernel_on_a_rect_stack_of_256_planes():
     assert (out[0] >= 0).float().mean().item() > 0.3
 
 
+def bounds_case(case, S, shape, seed):
+    """(V, K, mlo, mhi) of one bounds case on the card; where H*W % 4 is
+    not 0, K and mlo start off the 16-byte grid as well:
+    - "special": bounds NaN, +-inf, 1e9 / -1e9, fractional, -0.0, below
+      0, past M - 1, mlo > mhi;
+    - "coherent": narrow ranges (1-4 windows) shared by runs of 64 pixels,
+      the key planted inside them, so that a tile skips most planes;
+    - "invalid_ties": a third of the pixels with no valid sample (whole
+      tiles), constant columns where every window ties, the key planted
+      at two windows, sentinel bounds on a band;
+    - "extreme": samples and key values of 0, 1e-30, subnormal 1e-40,
+      1e10 and 1e15 among the uniform ones, so that window norms and
+      correlations are 0, tiny and huge, and a fifth of the pixels see
+      only zeros (the ring's fast root and division hand these to the
+      IEEE operators; no error overflows to NaN, whose argmin the
+      plain version and the kernels would place differently)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H, W = shape
+    N, M = H * W, S - 4
+    V = torch.rand((S, N), generator=gen, device="cuda")
+    V[torch.rand((S, N), generator=gen, device="cuda") < 0.1] = -1.0
+    K = torch.rand((5, N), generator=gen, device="cuda")
+    mlo = torch.zeros(N, device="cuda")
+    mhi = torch.full((N,), float(M - 1), device="cuda")
+    pixels = torch.arange(N, device="cuda")
+    if case == "special":
+        specials = torch.tensor(
+            [float("nan"), float("inf"), -float("inf"), 1e9, -1e9, -2.5,
+             -0.0, 0.5, M - 1.5, M - 1.0, M - 0.25, M + 3.5, 2.25],
+            device="cuda")
+        pick = torch.randint(0, len(specials), (2, N), generator=gen,
+                             device="cuda")
+        frac = torch.rand((2, N), generator=gen, device="cuda") * (M + 4) - 2
+        half = torch.rand(N, generator=gen, device="cuda") < 0.5
+        mlo = torch.where(half, specials[pick[0]], frac[0])
+        mhi = torch.where(half, specials[pick[1]], frac[1])
+    elif case == "coherent":
+        centre = torch.randint(0, M, (N // 64 + 1,), generator=gen,
+                               device="cuda")[pixels // 64]
+        width = torch.randint(0, 4, (N,), generator=gen, device="cuda")
+        mlo = (centre - width // 2).float()
+        mhi = torch.minimum(mlo + width, torch.tensor(M - 1.0,
+                                                      device="cuda"))
+        at = torch.clamp(mlo.long(), 0, M - 1)
+        for k in range(5):
+            V[at + k, pixels] = K[k]
+    elif case == "extreme":
+        values = torch.tensor([0.0, 1e-30, 1e-40, 1e10, 1e15],
+                              device="cuda")
+        for x in (V, K):
+            pick = torch.randint(0, 2 * len(values), x.shape, generator=gen,
+                                 device="cuda")
+            x[:] = torch.where(pick < len(values),
+                               values[pick % len(values)], x)
+        V[:, pixels % 5 == 0] = 0.0
+    else:
+        V[0:5] = K
+        if M > 1:
+            V[M - 1:M + 4] = K
+        V[:, : N // 3] = -1.0
+        col = pixels % W < 3
+        V[:, col] = 0.5
+        K[:, col] = 0.5
+        band = (pixels // W) % 7 == 3
+        mlo = torch.where(band, 1e9, mlo)
+        mhi = torch.where(band, -1e9, mhi)
+    if N % 4:
+        # odd bases too: every row of the ring's stages is misaligned
+        K_odd = torch.empty(5 * N + 1, device="cuda")[1:]
+        K_odd.copy_(K.reshape(-1))
+        mlo_odd = torch.empty(N + 3, device="cuda")[3:]
+        mlo_odd.copy_(mlo)
+        K, mlo = K_odd, mlo_odd
+    return (V.reshape(S, H, W), K.reshape(5, H, W), mlo.reshape(H, W),
+            mhi.reshape(H, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["special", "coherent", "invalid_ties",
+                                  "extreme"])
+@pytest.mark.parametrize("S", [5, 6, 7, 9, 48, 256])
+@pytest.mark.parametrize("shape", [(37, 41), (13, 38), (479, 641),
+                                   (24, 40)])
+def test_ssd_designs_bit_equal_on_odd_shapes_and_bounds(shape, S, case):
+    """On the card: both designs of ssd_search bit-equal to the plain
+    version when H*W % 4 is 1, 2 or 3 and K and mlo start off the
+    16-byte grid ("ring" runs the thread kernel there), and at 24x40
+    (the ring's TMA boxes), with fewer planes than a stage holds (S =
+    5-9), on NaN, infinite, sentinel, fractional and crossed bounds,
+    tile-coherent narrow ranges and all-invalid tiles and ties; one
+    launch counted per call."""
+    cuda_or_skip()
+    args = bounds_case(case, S, shape, seed=S * 7 + shape[1])
+    ref = ssd_search_reference(*args)
+    for design in ("ring", "thread"):
+        before = ssd_search.launches
+        out = ssd_search(*args, design=design)
+        torch.cuda.synchronize()
+        assert ssd_search.launches == before + 1
+        for port, plain in zip(out, ref):
+            assert torch.equal(port, plain), (design, shape, S, case)
+    if case in ("coherent", "invalid_ties"):
+        assert (ref[0] >= 0).any()
+    if case == "invalid_ties":
+        assert (ref[0] < 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ring", [((24, 40), 1), ((480, 640), 1),
+                                        ((37, 41), 0), ((479, 641), 0)])
+def test_ring_plan_takes_whole_vectors_only(shape, ring):
+    """On the card: the ring's plan takes a shape exactly when its
+    planes are whole 16-byte vectors (H*W % 4 == 0), with tiles of a
+    multiple of 4 pixels that cover the image on a grid of at most the
+    compiled blocks an SM."""
+    cuda_or_skip()
+    from tadataka_torch.vo.semi_dense.sweep import ring_config
+    H, W = shape
+    plan = ring_config(48, H, W)
+    consumers, _, _, ctas = plan["shape"]
+    assert plan["ring"] == ring
+    assert plan["tile"] % 4 == 0 and plan["tile"] <= consumers
+    assert plan["tiles"] == -(-H * W // plan["tile"])
+    assert plan["blocks_per_sm"] <= ctas
+    assert plan["grid"] <= plan["tiles"]
+
+
+@pytest.mark.cuda
+def test_ssd_search_rejects_an_unknown_design_on_the_card():
+    """On the card: an unknown design raises before any launch."""
+    cuda_or_skip()
+    args = bounds_case("coherent", 9, (13, 38), seed=1)
+    before = ssd_search.launches
+    with pytest.raises(ValueError, match="no design"):
+        ssd_search(*args, design="slab")
+    assert ssd_search.launches == before
+
+
 # ---------------------------------------- gather probes (benchmarks/*gather*)
 
 def gather_case(shape, S=None, seed=11):
