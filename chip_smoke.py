@@ -1088,11 +1088,14 @@ def phase_gather(floor_gbs):
     count at 0 before them; each kernel bit-equal to its plain version
     (NaN in the same places) on the scripts' inputs there and here on
     the hard case (planted negative, out-of-range and edge indices, 479 x
-    641, 20 index rows of N = 307039), flat_take_rows in each of its
-    designs; then each kernel's time beside its plain version's, its
-    library call's and its bound, and flat_take_rows' beside its first
-    design's time, its other design's and its time on identity indices.
-    Returns the kernels' JSON entries."""
+    641 and 480 x 640, 20 index rows of H*W), take_along_axis0,
+    multi_warp and flat_take_rows in each of their designs; then each
+    kernel's time beside its plain version's, its library call's, its
+    bound and the card's launch floor (an empty kernel), the designs of
+    take_along_axis0 and multi_warp timed in turns, and flat_take_rows'
+    beside its first design's time, its other design's and its time on
+    identity indices.  Returns the kernels' JSON entries (each kernel's
+    default design)."""
     from tadataka_torch.probes import dynamic_gather, flat_gather
     from tadataka_torch.probes import gather as g
     from tadataka_torch.probes.exp_ssd import cuda_ms
@@ -1115,12 +1118,16 @@ def phase_gather(floor_gbs):
         img, rows, cols = gather_hard_case(shape)
         fimg, idx = gather_hard_case(shape, S=20)
         checks = {
-            "take_along_axis0": (g.take_along_axis0(img, rows),
-                                 g.take_along_axis_reference(img, rows, 0)),
+            **{f"take_along_axis0/{d}": (
+                g.take_along_axis0(img, rows, design=d),
+                g.take_along_axis_reference(img, rows, 0))
+               for d in g.TAKE_ALONG_AXIS0_DESIGNS},
             "take_along_axis1": (g.take_along_axis1(img, cols),
                                  g.take_along_axis_reference(img, cols, 1)),
-            "multi_warp": (g.multi_warp(img, rows, cols, 16),
-                           g.multi_warp_reference(img, rows, cols, 16)),
+            **{f"multi_warp/{d}": (
+                g.multi_warp(img, rows, cols, 16, design=d),
+                g.multi_warp_reference(img, rows, cols, 16))
+               for d in g.MULTI_WARP_DESIGNS},
             "flat_take": (g.flat_take(fimg, idx),
                           g.flat_take_reference(fimg, idx)),
             **{f"flat_take_rows/{d}": (
@@ -1134,8 +1141,8 @@ def phase_gather(floor_gbs):
             nans[name] = f"{torch.isnan(ref).float().mean().item():.3f}"
         log("gather", f"hard case {shape[0]}x{shape[1]} (flat: 20 x "
             f"{shape[0] * shape[1]} indices): all five bit-equal to their "
-            "plain versions (flat_take_rows in each design), NaN in the same "
-            f"places (NaN share {nans})")
+            "plain versions in every design, NaN in the same places (NaN "
+            f"share {nans})")
 
     img, rows, cols = dynamic_gather.probe_inputs()
     fimg, idx = flat_gather.probe_inputs()
@@ -1150,14 +1157,50 @@ def phase_gather(floor_gbs):
         "flat_take": cuda_ms(lambda: g.flat_take_reference(fimg, idx)),
         "flat_take_rows": cuda_ms(
             lambda: g.flat_take_rows_reference(fimg, idx))}
-    one_warp = cuda_ms(lambda: g.multi_warp(img, rows, cols, 1))
-    ratio = timed["multi_warp"]["ms"] / one_warp
-    loads = sum("LDG" in line for line in kernel_sass(g.gather_library(),
-                                                       "multi_warp_kernel"))
-    log("gather", f"multi_warp S=1: {one_warp * 1e3:.1f} us; S="
-        f"{dynamic_gather.S} takes {ratio:.2f}x as long; multi_warp_kernel "
-        f"has {loads} global loads (LDG) in its SASS")
-    assert ratio > 3.0, "multi_warp's gathers were hoisted out of its loop"
+    built = g.gather_library()
+    for design in g.MULTI_WARP_DESIGNS:
+        one_warp = cuda_ms(lambda: g.multi_warp(img, rows, cols, 1,
+                                                design=design))
+        ratio = dyn[f"multi_warp/{design}"]["ms"] / one_warp
+        log("gather", f"multi_warp/{design} S=1: {one_warp * 1e3:.2f} us; "
+            f"S={dynamic_gather.S} takes {ratio:.2f}x as long")
+        assert ratio > 3.0, (f"multi_warp ({design}): the gathers were "
+                             "hoisted out of its loop")
+    for kernel in ("multi_warp_kernel", "multi_warp_strip_kernel",
+                   "take_axis0_kernel", "take_axis0_strip_kernel"):
+        for header, body in sass_sections(built, kernel):
+            form = ("" if "ILb" not in header else " (16-byte staging)"
+                    if "ILb1" in header else " (plain-load staging)")
+            log("gather", f"SASS of {kernel}{form}: "
+                f"{sum('LDG' in line for line in body)} global loads (LDG), "
+                f"{sum('LDS' in line for line in body)} shared loads (LDS), "
+                f"{sum('LDGSTS' in line for line in body)} of the LDG "
+                "cp.async copies (LDGSTS)")
+    clean = {name: cuda_ms(fn, clean=True) for name, fn in (
+        *((f"take_along_axis0/{d}",
+           lambda d=d: g.take_along_axis0(img, rows, design=d))
+          for d in g.TAKE_ALONG_AXIS0_DESIGNS),
+        ("torch.gather", lambda: torch.gather(img, 0, rows)),
+        ("launch floor", g.empty_launch))}
+    log("gather", "with a clean L2 (flushed by a read, no dirty lines to "
+        "write back): " + ", ".join(f"{name} {ms * 1e3:.2f} us"
+                                    for name, ms in clean.items()))
+    plane = VGA[0] * VGA[1] * 4
+    floor = dyn["launch_floor"]
+    for name in ("take_along_axis0", "multi_warp"):
+        n_bytes = (3 if name == "take_along_axis0" else 4) * plane
+        bound_ms = bound(n_bytes)[0]
+        log("gather", f"{name} in turns ({len(g.MULTI_WARP_DESIGNS)} designs): "
+            + ", ".join(
+                f"{d} {dyn[name + '/' + d]['ms'] * 1e3:.2f} us (quartiles "
+                + " - ".join(f"{q * 1e3:.2f}"
+                             for q in dyn[name + "/" + d]["quartiles"]) + ")"
+                for d in g.MULTI_WARP_DESIGNS)
+            + f"; plain {plain[name] * 1e3:.2f} us, library "
+            + (f"{dyn['gather0'] * 1e3:.2f} us (torch.gather)"
+               if name == "take_along_axis0" else "none")
+            + f", bound {bound_ms * 1e3:.2f} us, launch floor (empty "
+            f"kernel) {floor * 1e3:.2f} us")
     rows_ms = timed["flat_take_rows"]["ms"]
     log("gather", f"flat_take_rows ({g.FLAT_TAKE_ROWS_DEFAULT}): "
         f"{rows_ms:.4f} ms (first design: {FIRST_FLAT_TAKE_ROWS_MS} ms) "
@@ -1169,7 +1212,6 @@ def phase_gather(floor_gbs):
             for d in g.FLAT_TAKE_ROWS_DESIGNS)
         + f"; stream on identity indices {flat['identity']['ms']:.4f} ms, "
         f"on indices 8 to a 32-byte sector {flat['sector']['ms']:.4f} ms")
-    plane = VGA[0] * VGA[1] * 4
     work = {"take_along_axis0": (3 * plane, 0, dyn["gather0"]),
             "take_along_axis1": (3 * plane, 0, dyn["gather1"]),
             "multi_warp": (4 * plane, 2 * dynamic_gather.S * plane // 4,
@@ -1212,12 +1254,8 @@ def phase_dvo_cpu_gpu(tum_root, devices=("cpu", "cuda")):
     ``DvoTrajectory(weights="huber")`` over the first 3 frames of the TUM
     scene at 480x640; the forward-compositional pyramid on one 240x320
     pair through the freiburg1 camera (scaled by 1/2) with each weight
-    kind; the RadTan grids.  FOV runs through tan and atan, which the
-    CPU and the card may round an ulp apart: its normalize and
-    unnormalize are held within 4 float32 ulps of their largest output
-    (|a - b| <= 4.8e-7 max |a|: the pixel coordinates of unnormalize
-    reach 640, and near 0 a relative bound would be meaningless), and
-    the lines say whether they are bit-equal."""
+    kind; the RadTan grids; a FOV camera's normalize and unnormalize
+    (``core.rounding``'s tan and atan)."""
     from tadataka_torch.apps import DvoTrajectory
     from tadataka_torch.camera import FOV, CameraModel, CameraParameters
     from tadataka_torch.camera import resize
@@ -1265,14 +1303,10 @@ def phase_dvo_cpu_gpu(tum_root, devices=("cpu", "cuda")):
     back = [cam.unnormalize(xs[0].to(cam.camera_parameters.offset.device))
             .cpu() for cam in fov]
     for name, (a, b) in (("normalize", xs), ("unnormalize", back)):
-        d = (a - b).abs().max().item()
-        scale = a.abs().max().item()
-        log("dvo-cpu-gpu", f"FOV {name}: "
-            + ("bit-equal" if torch.equal(a, b) else
-               f"max |d| {d:.3g}, {d / scale:.3g} of the largest |output| "
-               f"{scale:.4g}; {(a != b).float().mean().item():.4f} of the "
-               "outputs differ"))
-        assert d <= 4.8e-7 * scale, (name, d, scale)
+        assert torch.equal(a, b), (
+            name, (a - b).abs().max().item(),
+            (a != b).float().mean().item())
+        log("dvo-cpu-gpu", f"FOV {name}, {len(a)} points: bit-equal")
 
 
 # The JAX package's DvoTrajectory(weights="huber") on this phase's 8 frames,

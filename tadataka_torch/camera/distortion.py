@@ -7,16 +7,17 @@ form on separate x and y tensors; they round as the JAX package's two
 forms do.  The coefficients are tensors, so every branch is a select
 and nothing syncs with the host, except the RadTan Newton undistort,
 which reads "all lanes converged" on the host every
-``_CONVERGENCE_CHECK`` iterations.  FOV goes through ``tan`` and
-``atan``, which the CPU and the card may round an ulp apart; RadTan
-uses only products, sums and true divisions, the same bits on both.
+``_CONVERGENCE_CHECK`` iterations.  FOV goes through
+``core.rounding``'s ``tan`` and ``atan`` and RadTan through products,
+sums and true divisions, so both give the same bits on the CPU and the
+card.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from tadataka_torch.core.rounding import as_divisor, sqrt
+from tadataka_torch.core.rounding import as_divisor, atan, sqrt, tan
 
 _R_EPS = 1e-8
 # iterations of the Newton undistort between two host reads of "all
@@ -61,17 +62,17 @@ class FOV(NamedTuple):
 
     def _factor(self, r, distort):
         omega = self.omega
-        tan_half = torch.tan(omega / as_divisor(2.0, omega))
+        tan_half = tan(omega / as_divisor(2.0, omega))
         small_r = torch.abs(r) < _R_EPS
         safe_r = torch.where(small_r, 1.0, r)
         if distort:
             factor = torch.where(
                 small_r, 2.0 * tan_half / omega,        # lim r -> 0
-                torch.atan(2.0 * safe_r * tan_half) / (omega * safe_r))
+                atan(2.0 * safe_r * tan_half) / (omega * safe_r))
         else:
             factor = torch.where(
                 small_r, omega / (2.0 * tan_half),
-                torch.tan(safe_r * omega) / (2.0 * safe_r * tan_half))
+                tan(safe_r * omega) / (2.0 * safe_r * tan_half))
         return torch.where(self._bypass(), 1.0, factor)
 
     def distort(self, x):

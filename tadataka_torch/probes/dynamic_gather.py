@@ -5,20 +5,25 @@
 
 runs, at 480x640 on the script's inputs (a uniform image and uniform
 row / column indices from a seeded generator): ``take_along_axis`` along
-rows and along columns, the library's ``torch.gather`` in place of the
-XLA lines, and 16 fused two-pass index warps.  Each line gives the
-kernel's time in us (CUDA-event median, L2 flushed) and whether it is
-bit-equal to its plain version.  It needs a CUDA device.
+rows (in each design) and along columns, the library's ``torch.gather``
+in place of the XLA lines, 16 fused two-pass index warps (in each
+design), and an empty kernel, the card's floor for one launch.  Each
+line gives the time in us (CUDA-event median and quartiles of 20
+rounds, L2 flushed, every function timed once a round in turns) and
+whether the kernel is bit-equal to its plain version.  It needs a CUDA
+device.
 """
 
+import statistics
 import sys
 
 import torch
 
-from tadataka_torch.probes.exp_ssd import cuda_ms
+from tadataka_torch.probes.exp_ssd import cuda_times
 from tadataka_torch.probes.gather import (
-    multi_warp, multi_warp_reference, same_bits, take_along_axis0,
-    take_along_axis1, take_along_axis_reference)
+    MULTI_WARP_DESIGNS, TAKE_ALONG_AXIS0_DESIGNS,
+    empty_launch, multi_warp, multi_warp_reference, same_bits,
+    take_along_axis0, take_along_axis1, take_along_axis_reference)
 
 SHAPE = (480, 640)
 S = 16
@@ -37,31 +42,54 @@ def probe_inputs(shape=SHAPE, seed=0):
     return img, rows, cols
 
 
-def run(shape=SHAPE, log=print):
-    """Time and check the three kernels and torch.gather on the card;
-    returns {name: {"ms", "correct"}} for take_along_axis0,
-    take_along_axis1, multi_warp, and {"gather0", "gather1": ms}."""
+def kernels(img, rows, cols):
+    """{name: (call, plain version's call)} of every kernel and design
+    the probe times; a design's name is "<kernel>/<design>"."""
+    calls = {f"take_along_axis0/{d}": (
+        lambda d=d: take_along_axis0(img, rows, design=d),
+        lambda: take_along_axis_reference(img, rows, 0))
+        for d in TAKE_ALONG_AXIS0_DESIGNS}
+    calls["take_along_axis1"] = (
+        lambda: take_along_axis1(img, cols),
+        lambda: take_along_axis_reference(img, cols, 1))
+    calls.update({f"multi_warp/{d}": (
+        lambda d=d: multi_warp(img, rows, cols, S, design=d),
+        lambda: multi_warp_reference(img, rows, cols, S))
+        for d in MULTI_WARP_DESIGNS})
+    return calls
+
+
+def run(shape=SHAPE, log=print, repeats=20):
+    """Check every kernel and design on the card, then time them, both
+    ``torch.gather`` calls and the empty launch in turns; returns
+    {name: {"ms", "quartiles", "correct"}} for each name of
+    :func:`kernels`, with "take_along_axis0" and "multi_warp" the
+    default designs' entries, and {"gather0", "gather1", "launch_floor":
+    ms}."""
     img, rows, cols = probe_inputs(shape)
+    calls = kernels(img, rows, cols)
+    correct = {name: same_bits(fn(), plain())
+               for name, (fn, plain) in calls.items()}
+    fns = {name: fn for name, (fn, _) in calls.items()}
+    fns["gather0"] = lambda: torch.gather(img, 0, rows)
+    fns["gather1"] = lambda: torch.gather(img, 1, cols)
+    fns["launch_floor"] = empty_launch
+    times = cuda_times(fns, repeats=repeats)
     results = {}
-    for label, fn, idx, axis in (("axis=0 (rows)", take_along_axis0, rows, 0),
-                                 ("axis=1 (cols)", take_along_axis1, cols,
-                                  1)):
-        correct = same_bits(fn(img, idx),
-                            take_along_axis_reference(img, idx, axis))
-        ms = cuda_ms(lambda: fn(img, idx))
-        log(f"cuda take_along_axis {label}: {ms * 1e3:9.1f} us  "
-            f"correct={correct}")
-        results[fn.__name__] = dict(ms=ms, correct=correct)
-    for axis, idx in ((0, rows), (1, cols)):
-        ms = cuda_ms(lambda: torch.gather(img, axis, idx))
-        log(f"torch.gather axis={axis}: {ms * 1e3:9.1f} us")
-        results[f"gather{axis}"] = ms
-    correct = same_bits(multi_warp(img, rows, cols, S),
-                        multi_warp_reference(img, rows, cols, S))
-    ms = cuda_ms(lambda: multi_warp(img, rows, cols, S))
-    log(f"cuda {S}x(2-pass warp)     : {ms * 1e3:9.1f} us  "
-        f"({ms / S * 1e3:6.1f} us/warp)  correct={correct}")
-    results["multi_warp"] = dict(ms=ms, correct=correct)
+    for name, ts in times.items():
+        q1, median, q3 = statistics.quantiles(ts, n=4)
+        label = name + (f" ({S} two-pass warps)"
+                        if name.startswith("multi_warp") else "")
+        log(f"{label:36s}: {statistics.median(ts) * 1e3:8.2f} us  "
+            f"(quartiles {q1 * 1e3:.2f} - {q3 * 1e3:.2f})"
+            + (f"  correct={correct[name]}" if name in correct else ""))
+        if name in correct:
+            results[name] = dict(ms=statistics.median(ts),
+                                 quartiles=(q1, q3), correct=correct[name])
+        else:
+            results[name] = statistics.median(ts)
+    for name in ("take_along_axis0", "multi_warp"):
+        results[name] = results[f"{name}/{MULTI_WARP_DESIGNS[0]}"]
     return results
 
 

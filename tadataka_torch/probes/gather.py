@@ -30,12 +30,18 @@ def gather_library():
         lib = built.lib
         lib.take_along_axis_launch.argtypes = [ptr, ptr] + [i32] * 3 + [
             ptr, ptr]
+        lib.take_along_axis0_strip_launch.argtypes = [ptr, ptr, i32, i32,
+                                                      ptr, ptr]
         lib.multi_warp_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr, ptr]
+        lib.multi_warp_strip_launch.argtypes = lib.multi_warp_launch.argtypes
+        lib.empty_launch.argtypes = [ptr]
         lib.flat_take_launch.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr]
         lib.flat_take_rows_launch.argtypes = [ptr, i32, ptr, i32, i32, i32,
                                               ptr, ptr]
         lib.flat_take_rows_cluster_bytes.argtypes = [i32]
-        for fn in (lib.take_along_axis_launch, lib.multi_warp_launch,
+        for fn in (lib.take_along_axis_launch,
+                   lib.take_along_axis0_strip_launch, lib.multi_warp_launch,
+                   lib.multi_warp_strip_launch, lib.empty_launch,
                    lib.flat_take_launch, lib.flat_take_rows_launch,
                    lib.flat_take_rows_cluster_bytes):
             fn.restype = i32
@@ -104,7 +110,23 @@ def flat_take_rows_reference(img, idx):
 
 # ------------------------------------------------------------- wrappers
 
-def _take_along_axis(wrapper, img, idx, axis):
+# The designs of take_along_axis0 and multi_warp (csrc/gather_probes.cu),
+# the first the default: "strip" stages a 32-column strip of the
+# column-local operand (img for take_along_axis0, idxc for multi_warp) in
+# a block's shared memory and gathers from there; "thread" is the first
+# kernel, one thread an element gathering from L2.  Where the strip does
+# not fit in a block's shared memory (227 KB) "strip" runs the "thread"
+# kernel.
+MULTI_WARP_DESIGNS = ("strip", "thread")
+TAKE_ALONG_AXIS0_DESIGNS = MULTI_WARP_DESIGNS
+
+
+def _check_design(name, design):
+    if design not in MULTI_WARP_DESIGNS:
+        raise ValueError(f"{name}: no design {design!r}")
+
+
+def _take_along_axis(wrapper, img, idx, axis, design):
     name = wrapper.__name__
     _check(name, img, idx)
     if idx.shape != img.shape:
@@ -113,33 +135,45 @@ def _take_along_axis(wrapper, img, idx, axis):
         return take_along_axis_reference(img, idx, axis)
     H, W = img.shape
     out = torch.empty_like(img)
+    lib = gather_library().lib
     with torch.cuda.device(img.device):
-        _launch(name, gather_library().lib.take_along_axis_launch(
-            img.data_ptr(), idx.data_ptr(), H, W, axis, out.data_ptr(),
-            _stream()))
+        if design == "strip":
+            status = lib.take_along_axis0_strip_launch(
+                img.data_ptr(), idx.data_ptr(), H, W, out.data_ptr(),
+                _stream())
+        else:
+            status = lib.take_along_axis_launch(
+                img.data_ptr(), idx.data_ptr(), H, W, axis, out.data_ptr(),
+                _stream())
+        _launch(name, status)
     wrapper.launches += 1
     return out
 
 
-def take_along_axis0(img, idx):
+def take_along_axis0(img, idx, design="strip"):
     """``take_along_axis(img, idx, axis=0)`` for img (H, W) float32 and
-    idx (H, W) int32: out[i, j] = img[idx[i, j], j]."""
-    return _take_along_axis(take_along_axis0, img, idx, 0)
+    idx (H, W) int32: out[i, j] = img[idx[i, j], j].  ``design`` is one
+    of TAKE_ALONG_AXIS0_DESIGNS."""
+    _check_design("take_along_axis0", design)
+    return _take_along_axis(take_along_axis0, img, idx, 0, design)
 
 
 def take_along_axis1(img, idx):
-    """``take_along_axis(img, idx, axis=1)``: out[i, j] = img[i, idx[i, j]]."""
-    return _take_along_axis(take_along_axis1, img, idx, 1)
+    """``take_along_axis(img, idx, axis=1)``: out[i, j] = img[i, idx[i, j]]
+    (one thread an element)."""
+    return _take_along_axis(take_along_axis1, img, idx, 1, "thread")
 
 
 take_along_axis0.launches = 0
 take_along_axis1.launches = 0
 
 
-def multi_warp(img, idxr, idxc, S=16):
+def multi_warp(img, idxr, idxc, S=16, design="strip"):
     """``k_multi``: S two-pass index warps of img (H, W), accumulated with
     weights 1 .. S.  The kernel runs every warp's gathers (no hoisting);
-    idxr and idxc are (H, W) int32."""
+    idxr and idxc are (H, W) int32.  ``design`` is one of
+    MULTI_WARP_DESIGNS."""
+    _check_design("multi_warp", design)
     _check("multi_warp", img, idxr, idxc)
     if idxr.shape != img.shape or idxc.shape != img.shape or S < 0:
         raise ValueError("multi_warp wants idxr and idxc of img's shape and "
@@ -148,8 +182,12 @@ def multi_warp(img, idxr, idxc, S=16):
         return multi_warp_reference(img, idxr, idxc, S)
     H, W = img.shape
     out = torch.empty_like(img)
+    lib = gather_library().lib
+    launch = (lib.multi_warp_strip_launch if design == "strip"
+              else lib.multi_warp_launch)
     with torch.cuda.device(img.device):
-        _launch("multi_warp", gather_library().lib.multi_warp_launch(
+        # stride 0: every warp's gathers run, at the same addresses
+        _launch("multi_warp", launch(
             img.data_ptr(), idxr.data_ptr(), idxc.data_ptr(), H, W, S, 0,
             out.data_ptr(), _stream()))
     multi_warp.launches += 1
@@ -212,6 +250,13 @@ flat_take_rows.launches = 0
 
 WRAPPERS = (take_along_axis0, take_along_axis1, multi_warp, flat_take,
             flat_take_rows)
+
+
+def empty_launch():
+    """Launch the library's empty kernel (one block of 32 threads) on the
+    current stream: timed with CUDA events, the card's floor for one
+    launch.  Not counted: it computes nothing."""
+    _launch("empty", gather_library().lib.empty_launch(_stream()))
 
 
 def same_bits(a, b):

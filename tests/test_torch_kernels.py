@@ -9,6 +9,8 @@ This file imports no JAX, so it runs on a machine with a card without
 Without a CUDA device the ``cuda`` tests skip (a kernel has no CPU form).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -438,14 +440,45 @@ def test_gather_probes_cpu_run_the_plain_versions_uncounted():
         g.flat_take(img2.to("meta"), idx.to("meta"))
 
 
+@pytest.mark.parametrize("design", ["strip", "thread"])
+def test_strip_designs_on_cpu(design):
+    """On CPU tensors take_along_axis0 and multi_warp return the plain
+    version's bits in each design, with planted edge indices, and count
+    no launch; an unknown design raises before any input check."""
+    from tadataka_torch.probes import gather as g
+    assert g.TAKE_ALONG_AXIS0_DESIGNS == g.MULTI_WARP_DESIGNS == (
+        "strip", "thread")
+    assert all(inspect.signature(fn).parameters["design"].default == "strip"
+               for fn in (g.take_along_axis0, g.multi_warp))
+    img, rows, cols = gather_case((11, 37))
+    img = torch.from_numpy(img)
+    rows, cols = torch.from_numpy(rows), torch.from_numpy(cols)
+    counts = [g.take_along_axis0.launches, g.multi_warp.launches]
+    out = g.take_along_axis0(img, rows, design=design)
+    ref = g.take_along_axis_reference(img, rows, 0)
+    assert torch.isnan(ref).any() and g.same_bits(out, ref)
+    assert g.same_bits(g.multi_warp(img, rows, cols, 3, design=design),
+                       g.multi_warp_reference(img, rows, cols, 3))
+    assert counts == [g.take_along_axis0.launches, g.multi_warp.launches]
+    with pytest.raises(ValueError, match="no design"):
+        g.take_along_axis0(img, rows, design=design + "s")
+    with pytest.raises(ValueError, match="no design"):
+        g.multi_warp(img, rows, cols.long(), design="tiles")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(480, 640), (479, 641), (5, 3)])
-def test_gather_kernels_bit_equal_to_plain(shape):
+@pytest.mark.parametrize("design", ["strip", "thread"])
+@pytest.mark.parametrize("shape", [(480, 640), (479, 641), (5, 3),
+                                   (300, 37), (300, 36)])
+def test_gather_kernels_bit_equal_to_plain(shape, design):
     """On the card: each of the five gather kernels against its plain
     version on the same CUDA tensors, bit for bit with NaN in the same
     places, on planted negative, out-of-range and edge indices, with odd
-    sizes (S = 20 index rows, N = H*W not a multiple of 2048); one
-    launch counted per call."""
+    sizes (S = 20 index rows, N = H*W not a multiple of 2048), and
+    take_along_axis0 and multi_warp in ``design``: "strip" stages by
+    16-byte copies at 480x640 and 300x36 (a last strip of 4 columns) and
+    by plain loads at 479x641, 5x3 and 300x37 (H > 256, a last strip of
+    5 columns); one launch counted per call."""
     cuda_or_skip()
     from tadataka_torch.probes import gather as g
     img, rows, cols = gather_case(shape)
@@ -455,23 +488,52 @@ def test_gather_kernels_bit_equal_to_plain(shape):
     flat_img = torch.tensor(flat_img, device="cuda")
     idx = torch.tensor(idx, device="cuda")
     calls = [
-        (g.take_along_axis0, (img, rows),
+        (lambda *a: g.take_along_axis0(*a, design=design), (img, rows),
          g.take_along_axis_reference(img, rows, 0)),
         (g.take_along_axis1, (img, cols),
          g.take_along_axis_reference(img, cols, 1)),
-        (g.multi_warp, (img, rows, cols, 16),
+        (lambda *a: g.multi_warp(*a, design=design), (img, rows, cols, 16),
          g.multi_warp_reference(img, rows, cols, 16)),
         (g.flat_take, (flat_img, idx), g.flat_take_reference(flat_img, idx)),
         (g.flat_take_rows, (flat_img, idx),
          g.flat_take_rows_reference(flat_img, idx))]
-    for fn, args, ref in calls:
-        before = fn.launches
+    for wrapper, (fn, args, ref) in zip(g.WRAPPERS, calls):
+        before = wrapper.launches
         out = fn(*args)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        assert wrapper.launches == before + 1
         assert out.device.type == "cuda"
-        assert g.same_bits(out, ref), fn.__name__
+        assert g.same_bits(out, ref), wrapper.__name__
     assert torch.isnan(calls[0][2]).any() and torch.isnan(calls[4][2]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["strip", "thread"])
+def test_strip_designs_take_a_tall_image(design):
+    """On the card: at H = 2000 the column strip (250 KB) does not fit in
+    a block's shared memory, and "strip" runs the "thread" kernel: both
+    designs bit-equal to the plain versions."""
+    cuda_or_skip()
+    from tadataka_torch.probes import gather as g
+    img, rows, cols = gather_case((2000, 9))
+    img = torch.tensor(img, device="cuda")
+    rows, cols = tensors((rows, cols), device="cuda", dtype=torch.int32)
+    out = g.take_along_axis0(img, rows, design=design)
+    assert g.same_bits(out, g.take_along_axis_reference(img, rows, 0))
+    out = g.multi_warp(img, rows, cols, 4, design=design)
+    assert g.same_bits(out, g.multi_warp_reference(img, rows, cols, 4))
+
+
+@pytest.mark.cuda
+def test_empty_launch_runs():
+    """On the card: the empty kernel that sets the launch floor launches
+    and counts nothing."""
+    cuda_or_skip()
+    from tadataka_torch.probes import gather as g
+    counts = [fn.launches for fn in g.WRAPPERS]
+    g.empty_launch()
+    torch.cuda.synchronize()
+    assert counts == [fn.launches for fn in g.WRAPPERS]
 
 
 def test_flat_take_rows_designs_on_cpu():

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from tadataka_torch.core.rounding import as_divisor, matmul_small, sqrt
+from tadataka_torch.core.rounding import (
+    as_divisor, atan, matmul_small, sqrt, tan)
 from tadataka_torch.vo.dvo import _triangle_weights, fixed_order_sum
 from tadataka_torch.vo.dvo import resize_image, resize_taps
 from tadataka_torch.vo.semi_dense.propagation import scatter_add
@@ -36,6 +37,60 @@ def test_sqrt_is_correctly_rounded(gen, scale):
     x = (gen.random(200_000) * scale).astype(np.float32)
     want = np.sqrt(x.astype(np.float64)).astype(np.float32)
     np.testing.assert_array_equal(sqrt(torch.from_numpy(x)).numpy(), want)
+
+
+def fov_arguments(gen, n=100_000):
+    """The arguments FOV gives tan and atan (``camera/distortion.py``):
+    omega / 2 for omega in (0, 3), r omega and 2 r tan(omega / 2) for a
+    radius r up to 1.2 (past the normalized corner of a 640x480 image at
+    a focal length of 500), with their negatives and 0."""
+    omega = gen.uniform(0.0, 3.0, n)
+    r = gen.uniform(0.0, 1.2, n)
+    x = np.concatenate([omega / 2, r * omega, 2 * r * np.tan(omega / 2),
+                        [0.0]]).astype(np.float32)
+    return np.concatenate([x, -x])
+
+
+def ulps_apart(a, b):
+    """|a - b| in float32 ulps, for a and b of one sign."""
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("fn,ref", [(tan, np.tan), (atan, np.arctan)])
+def test_tan_and_atan_on_the_fov_range(gen, fn, ref):
+    """Equal to numpy's float64 function rounded to float32 on every
+    input of the FOV range; odd, -0 kept, and exactly 0 at 0."""
+    x = fov_arguments(gen)
+    got = fn(torch.from_numpy(x)).numpy()
+    want = ref(x.astype(np.float64)).astype(np.float32)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    half = len(x) // 2
+    np.testing.assert_array_equal(got[half:], -got[:half])
+    zeros = fn(torch.tensor([0.0, -0.0])).numpy()
+    np.testing.assert_array_equal(zeros.view(np.int32),
+                                  np.array([0.0, -0.0], np.float32)
+                                  .view(np.int32))
+
+
+@pytest.mark.parametrize("fn,ref", [(tan, np.tan), (atan, np.arctan)])
+def test_tan_and_atan_off_the_fov_range(gen, fn, ref):
+    """Within one ulp on |x| from 1e-30 to 1e4, and the special values:
+    tan(+-inf) and tan(NaN) are NaN, atan(+-inf) is +-pi/2."""
+    x = (gen.uniform(-1, 1, 100_000) * 10.0 ** gen.uniform(-30, 4, 100_000)
+         ).astype(np.float32)
+    got = fn(torch.from_numpy(x)).numpy()
+    want = ref(x.astype(np.float64)).astype(np.float32)
+    assert ulps_apart(got, want).max() <= 1
+    special = torch.tensor([float("inf"), -float("inf"), float("nan")])
+    out = fn(special).numpy()
+    assert np.isnan(out[2])
+    if fn is atan:
+        np.testing.assert_array_equal(out[:2], np.float32([np.pi / 2,
+                                                           -np.pi / 2]))
+    else:
+        assert np.isnan(out[:2]).all()
 
 
 def test_division_by_as_divisor_is_the_true_quotient():
@@ -115,10 +170,30 @@ def test_resize_image_matches_the_dense_products(gen):
 
 @pytest.mark.cuda
 def test_helpers_give_the_same_bits_on_the_card(gen):
-    """sqrt, as_divisor, matmul_small, fixed_order_sum, scatter_add and
-    resize_image: the card's result equals the CPU's bit for bit."""
+    """sqrt, as_divisor, matmul_small, fixed_order_sum, scatter_add,
+    resize_image, tan and atan (on 10^6 inputs: the FOV range and |x|
+    from 1e-30 to 1e4), and a FOV camera's normalize and unnormalize:
+    the card's result equals the CPU's bit for bit."""
     need_card()
+    from tadataka_torch.camera import FOV, CameraModel, CameraParameters
     x = torch.from_numpy((gen.random(100_000) * 1e-2).astype(np.float32))
+    wide = torch.from_numpy(np.concatenate([
+        fov_arguments(gen, 250_000),
+        (gen.uniform(-1, 1, 500_000) * 10.0 ** gen.uniform(-30, 4, 500_000)
+         ).astype(np.float32)]))
+    pixels = torch.from_numpy((gen.random((20_000, 2)) * [640.0, 480.0])
+                              .astype(np.float32))
+
+    def fov_camera(device):
+        return CameraModel.create(CameraParameters.create(
+            (517.3, 516.5), (318.6, 255.3), device=device),
+            FOV.create(0.8, device=device))
+
+    def fov_round_trip(us):
+        camera = fov_camera(us.device)
+        xs = camera.normalize(us)
+        return torch.cat([xs, camera.unnormalize(xs)], -1)
+
     u8 = torch.arange(256, dtype=torch.float32)
     a = torch.from_numpy(gen.normal(size=(5, 4, 4)).astype(np.float32))
     index = torch.from_numpy(gen.integers(0, 500, 5000))
@@ -131,6 +206,9 @@ def test_helpers_give_the_same_bits_on_the_card(gen):
         (fixed_order_sum, (values.reshape(5, 1000),)),
         (lambda i, v: scatter_add(500, i, v), (index, values)),
         (lambda im: resize_image(im, (95, 127)), (image,)),
+        (tan, (wide,)),
+        (atan, (wide,)),
+        (fov_round_trip, (pixels,)),
     ]
     for fn, args in cases:
         cpu = fn(*args)
