@@ -384,13 +384,17 @@ def phase_probes():
     (32, 48, 128, 256; the two-pass search's slab passes 48 KB from
     S = 100), 480x640, on exp_ssd.py's inputs and on ssd_inputs' harder
     case: the copy floor in every variant (the thread designs and the
-    bulk-copy ring) and every serial variant bit-equal (the serial
-    ones to ssd_search too), the two-pass search within compare_search's
-    bounds of its plain version and of the serial search.  The bulk-copy
-    floor's best time at each S is printed beside the thread variants'
-    and torch.sum's, and its kernel's SASS must hold the bulk copy
-    (UBLKCP).  Returns the kernels' JSON entries and the measured floor
-    in GB/s."""
+    bulk-copy ring), every serial "thread" variant and the serial "tile"
+    design bit-equal to ssd_search and to the plain version, the
+    two-pass search in both designs within compare_search's bounds of
+    its plain version and of the serial search, with the re-score counts
+    of serial "tile".  The bulk-copy floor's best time at each S is
+    printed beside the thread variants' and torch.sum's, each design of
+    the two searches beside the bound, its kernel's SASS must hold its
+    bulk copies (UBLKCP; the "tile" kernels also UTMALDG), and the
+    instructions a window of each search kernel's window loop are
+    printed.  Returns the kernels' JSON entries (the searches in their
+    default design) and the measured floor in GB/s."""
     from tadataka_torch.probes import exp_ssd as probes
     from tadataka_torch.probes.ssd_ring import ssd_inputs
     from tadataka_torch.vo.semi_dense.sweep import ssd_search
@@ -419,26 +423,41 @@ def phase_probes():
             search = ssd_search(*args)
             plain = probes.ssd_serial_reference(*args)
             for variant in probes.SERIAL_VARIANTS:
-                out = probes.ssd_serial(*args, *variant)
+                out = probes.ssd_serial(*args, *variant, design="thread")
                 torch.cuda.synchronize()
                 assert all(torch.equal(a, b) and torch.equal(a, c)
                            for a, b, c in zip(out, search, plain)), \
                     (S, case, variant)
-            par = probes.ssd_par(*args)
-            par_eq, par_share, par_err = compare_search(
-                f"ssd_par vs plain, {case}, S={S}", par,
-                probes.ssd_par_reference(*args))
-            errs["ssd_par"] = max(errs["ssd_par"], par_err)
-            vs_eq, vs_share, vs_err = compare_search(
-                f"ssd_par vs ssd_serial, {case}, S={S}", par, search)
+            rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
+            out = probes.ssd_serial(*args, design="tile", rescore=rescore)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(out, search, plain)), \
+                (S, case, "tile")
+            n_exact, n_scan, n_sweep = rescore.tolist()
+            par_ref = probes.ssd_par_reference(*args)
+            lines = []
+            for design in probes.PAR_DESIGNS:
+                par = probes.ssd_par(*args, design=design)
+                par_eq, par_share, par_err = compare_search(
+                    f"ssd_par {design} vs plain, {case}, S={S}", par, par_ref)
+                errs["ssd_par"] = max(errs["ssd_par"], par_err)
+                vs_eq, vs_share, vs_err = compare_search(
+                    f"ssd_par {design} vs ssd_serial, {case}, S={S}", par,
+                    search)
+                lines.append(
+                    f"ssd_par {design} {'bit-equal' if par_eq else 'within bounds'}"
+                    f" to plain (best equal {par_share:.6f}, max |d| "
+                    f"{par_err}), vs ssd_serial: best equal {vs_share:.6f}, "
+                    f"max |d| {vs_err}")
             log("probes", f"{case}, S={S} 480x640: copy floor bit-equal to "
                 f"plain in {len(probes.COPY_VARIANTS)} variants; ssd_serial "
                 "bit-equal to ssd_search and to plain in "
-                f"{len(probes.SERIAL_VARIANTS)} variants; ssd_par (slab "
-                f"{probes.probe_library().lib.ssd_par_shared_bytes(S)} B) "
-                f"{'bit-equal' if par_eq else 'within bounds'} to plain "
-                f"(best equal {par_share:.6f}, max |d| {par_err}); ssd_par "
-                f"vs ssd_serial: best equal {vs_share:.6f}, max |d| {vs_err}")
+                f"{len(probes.SERIAL_VARIANTS)} thread variants and tile "
+                f"(tile re-scored {n_exact / (VGA[0] * VGA[1]):.3f} windows "
+                f"a pixel exactly, {n_scan} pixels scanned every window, "
+                f"{n_sweep} swept again for several candidates); "
+                + "; ".join(lines))
 
     args = probes.probe_inputs(32, *VGA)
     plain_ms = {
@@ -448,40 +467,57 @@ def phase_probes():
             lambda: probes.ssd_serial_reference(*args)),
         "ssd_par": probes.cuda_ms(lambda: probes.ssd_par_reference(*args))}
     at32 = timings[32]
-    best = {name: min(at32[key], key=at32[key].get)
-            for name, key in (("ssd_copy_floor", "floor"),
-                              ("ssd_serial", "serial"))}
-    ms = {"ssd_copy_floor": at32["floor"][best["ssd_copy_floor"]],
-          "ssd_serial": at32["serial"][best["ssd_serial"]],
-          "ssd_par": at32["par"]}
-    log("probes", "the kernels line gives each probe's fastest variant at "
-        "S=32: copy floor {}, serial (cols, rows) = {}".format(
-            probes.copy_variant_name(best["ssd_copy_floor"]),
-            best["ssd_serial"]))
+    best_floor = min(at32["floor"], key=at32["floor"].get)
+    default = {"ssd_serial": probes.serial_design(32),
+               "ssd_par": probes.PAR_DESIGNS[0]}
+    ms = {"ssd_copy_floor": at32["floor"][best_floor]}
+    for name, design in default.items():
+        ms[name] = statistics.median(at32["designs"][f"{name} {design}"])
+    log("probes", "the kernels line gives the copy floor's fastest variant "
+        f"at S=32 ({probes.copy_variant_name(best_floor)}) and each "
+        f"search's default design: {default}")
+    H, W = VGA
     bulk = [v for v in probes.COPY_VARIANTS if v[0] == "bulk"]
     for S, t in timings.items():
-        gb = S * VGA[0] * VGA[1] * 4 / 1e6
+        gb = S * H * W * 4 / 1e6
         floor = min(t["floor"].values())
         old = min(ms for v, ms in t["floor"].items() if v[0] == "threads")
         new = min(t["floor"][v] for v in bulk)
+        bound_ms = bound(*ssd_search_bytes_flops(S, H, W))[0]
+        medians = {name: statistics.median(x)
+                   for name, x in t["designs"].items()}
         log("probes", f"S={S}: measured V-read floor {floor:.4f} ms "
             f"({gb / floor:.1f} GB/s, {gb / floor / 3350:.3f} of the "
             f"3.35 TB/s data sheet); ssd_search {t['search']:.4f} ms "
             f"({gb / t['search']:.1f} GB/s) = {floor / t['search']:.3f} of "
-            f"the measured floor; best serial variant "
-            f"{min(t['serial'].values()):.4f} ms, par {t['par']:.4f} ms")
+            "the measured floor; in turns: " + ", ".join(
+                f"{name} {m:.4f} ms ({bound_ms / m:.3f} of the "
+                f"{bound_ms:.4f} ms bound)" for name, m in medians.items()))
         log("probes", f"S={S}: copy floor, best bulk-copy variant "
             f"{new:.4f} ms ({gb / new:.1f} GB/s), best thread variant "
             f"{old:.4f} ms ({gb / old:.1f} GB/s), torch.sum(V, 0) "
             f"{t['sum']:.4f} ms ({gb / t['sum']:.1f} GB/s): bulk "
             f"{'no slower than' if new <= t['sum'] else 'slower than'} "
             f"torch.sum ({new / t['sum']:.3f}x)")
-    sass = kernel_sass(probes.probe_library(), "copy_floor_bulk_kernel")
+    built = probes.probe_library()
+    sass = kernel_sass(built, "copy_floor_bulk_kernel")
     copies = [line.strip() for line in sass if "UBLKCP" in line]
     log("probes", f"copy_floor_bulk_kernel's SASS: {len(copies)} bulk "
         f"copies (UBLKCP): {copies[:2]}")
     assert copies, "copy_floor_bulk_kernel issues no bulk copy"
-    H, W = VGA
+    for title, kernel, marker in (
+            ("ssd_serial thread", "serial_kernelILi1", "MUFU.RSQ"),
+            ("ssd_serial tile", "tile_kernelILb1", "MUFU.RSQ"),
+            ("ssd_par slab", "par_kernel", "MUFU.RSQ"),
+            ("ssd_par tile", "tile_kernelILb0", "MUFU.RSQ")):
+        lines = kernel_sass(built, kernel)
+        per_window, unrolled = loop_per_window(lines, marker)
+        counts = {op: sum(op in line for line in lines)
+                  for op in ("UTMALDG", "UBLKCP")}
+        log("probes", f"{title} ({kernel}) SASS: window loop {per_window} "
+            f"instructions a window ({unrolled} windows a trip); {counts}")
+        if "tile" in title:
+            assert counts["UTMALDG"] > 0 and counts["UBLKCP"] > 0, counts
     library_ms = at32["sum"]
     search_bytes, search_flops = ssd_search_bytes_flops(32, H, W)
     work = {"ssd_copy_floor": (33 * H * W * 4, 31 * H * W, library_ms),
@@ -904,21 +940,65 @@ def phase_captured(searches):
     drive, as the main path gave them: both designs bit-equal to the
     plain version on each, and per search and per frame each design's
     time beside the bound at those inputs, the share of windows in
-    bounds and the planes a ring tile reads.  Returns {path: frame
-    totals}."""
-    from tadataka_torch.vo.semi_dense.sweep import SSD_DESIGNS
+    bounds and the planes a ring tile reads.  The probes' "tile" designs
+    run on the same inputs (ssd_serial bit-equal, ssd_par within
+    bounds), the windows ssd_serial "tile" re-scores exactly are
+    counted, and the probes are timed there in turns.  Returns {path:
+    frame totals}."""
+    from tadataka_torch.probes import exp_ssd as probes
+    from tadataka_torch.vo.semi_dense.sweep import (
+        SSD_DESIGNS, ssd_window_bounds)
     log_clocks("captured", "before")
     totals = {}
     for path, calls in searches.items():
         frame = dict(ms=dict.fromkeys(SSD_DESIGNS, 0.0), bound_ms=0.0)
+        rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
+        windows = pixels = 0
+        par_equal = True
+        census = {}
+        tile_ms = {"ssd_serial tile": 0.0, "ssd_serial thread": 0.0,
+                   "ssd_par tile": 0.0}
         for i, args in enumerate(calls):
-            check_designs(f"the {path} frame's search {i}", args)
+            name = f"the {path} frame's search {i}"
+            ref = check_designs(name, args)
+            out = probes.ssd_serial(*args, design="tile", rescore=rescore)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise AssertionError(f"ssd_serial tile differs from plain on "
+                                     f"{name}")
+            par_equal &= compare_search(
+                f"ssd_par tile on {name}", probes.ssd_par(
+                    *args, design="tile"), probes.ssd_par_reference(*args))[0]
+            for key, n in probes.filter_census(*args).items():
+                census[key] = census.get(key, 0) + n
+            lo, hi = (x.long() for x in ssd_window_bounds(
+                args[2], args[3], args[0].shape[0]))
+            windows += torch.clamp(hi - lo + 1, min=0).sum().item()
+            pixels += lo.numel()
             r = time_search("captured", f"{path} frame, search {i} of "
                             f"{len(calls)} (ring, thread bit-equal to plain)",
                             args)
             for d in SSD_DESIGNS:
                 frame["ms"][d] += r["ms"][d]
             frame["bound_ms"] += r["bound_ms"]
+            times = probes.cuda_times({name: (
+                lambda name=name: (probes.ssd_serial if "serial" in name
+                                   else probes.ssd_par)(
+                    *args, design=name.split()[1]))
+                for name in tile_ms})
+            for name, t in times.items():
+                tile_ms[name] += statistics.median(t)
+        n_exact, n_scan, n_sweep = rescore.tolist()
+        census["candidates"] /= len(calls)
+        log("captured", f"{path} frame, {len(calls)} searches, ssd_serial "
+            "tile bit-equal to plain, ssd_par tile "
+            f"{'bit-equal to plain' if par_equal else 'within bounds'}: tile "
+            f"re-scored {n_exact / pixels:.3f} windows a pixel exactly of "
+            f"{windows / pixels:.3f} in bounds, {n_scan} of {pixels} pixels "
+            f"scanned every window, {n_sweep} swept again for several "
+            f"candidates; the plain filter's census (pixels): {census}; "
+            "the probes on these searches, in turns, medians summed: "
+            + ", ".join(f"{name} {ms:.4f} ms" for name, ms in tile_ms.items()))
         log("captured", f"{path} frame, {len(calls)} searches: ring "
             f"{frame['ms']['ring']:.4f} ms, thread "
             f"{frame['ms']['thread']:.4f} ms, bound at these inputs "
@@ -1080,6 +1160,44 @@ def sass_sections(built, kernel):
 def kernel_sass(built, kernel):
     """The SASS lines of the first function named ``kernel``."""
     return sass_sections(built, kernel)[0][1]
+
+
+def loop_per_window(lines, marker="MUFU.RSQ"):
+    """(instructions a window, windows a trip) of the innermost loop of a
+    SASS listing whose body holds the most ``marker`` instructions, one a
+    window: the lines from a backward branch's target to the branch."""
+    import re
+    ops, labels, pending = [], {}, []
+    for line in lines:
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(\S.*?);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update(dict.fromkeys(pending, addr))
+            pending = []
+            ops.append((addr, m.group(2)))
+    loops = []
+    for addr, text in ops:
+        if "BRA" not in text:
+            continue
+        hexa = re.search(r"0x([0-9a-f]+)", text)
+        name = re.search(r"(\.L_x_\d+)", text)
+        target = (int(hexa.group(1), 16) if hexa else
+                  labels.get(name.group(1)) if name else None)
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    best = (0, 0)
+    for lo, hi in loops:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
+            continue                           # not innermost
+        body = [text for addr, text in ops if lo <= addr <= hi]
+        n = sum(marker in text for text in body)
+        if n > best[1] or (n == best[1] and len(body) < best[0]):
+            best = (len(body), n)
+    return (best[0] / best[1], best[1]) if best[1] else (None, 0)
 
 
 def phase_gather(floor_gbs):

@@ -42,11 +42,87 @@
 //   slab.  The slab needs M * 512 bytes (63.5 KB at S = 128), so the
 //   launcher raises the dynamic shared-memory limit above 48 KB and
 //   refuses an S whose slab exceeds the 227 KB a block may hold.
+//
+// The serial kernel above is ssd_serial's "thread" design and the two-pass
+// kernel ssd_par's "slab" design.  Neither keeps a load in flight under its
+// arithmetic, and both pay for every window in full (the serial one the
+// IEEE root and division, the slab one three scans of the slab).  The
+// "tile" design of both (tile_kernel below) does two things about that:
+//
+// - All S planes of a tile of P consecutive pixels (H*W flattened: the
+//   search has no spatial neighbourhood) sit in shared memory, with the
+//   tile's K, mlo and mhi.  A persistent grid walks the tiles; one thread
+//   of a producer warp loads each tile with 2-D TMA boxes of V and K seen
+//   as (planes, H*W) and 1-D bulk copies of mlo and mhi, all with an L2
+//   evict-first hint.  V comes in up to 8 chunks of planes, a box and an
+//   mbarrier each (K, mlo and mhi with the first), so that the consumers
+//   score a chunk's windows while the next chunks land; two stages a
+//   block, so that one tile's loads run under the previous tile's
+//   arithmetic.  Each consumer thread owns one pixel, keeps the last four
+//   samples and their squares in registers (a square and a sign test per
+//   sample, shared by the five windows that read it) and scores only the
+//   windows m_lo .. m_hi of its bounds (sweep.py::ssd_window_bounds).
+//   The block shape comes from the occupancy calculator: the largest of
+//   256, 128, 64 and 32 consumer threads that gives an SM 16 consumer
+//   warps, else the one with the most resident pixels an SM; P, a
+//   multiple of 4, cuts the tiles to split evenly over the grid.  A
+//   tensor map needs H*W % 4 == 0 and every input on the 16-byte grid;
+//   the launcher refuses other inputs, and an S whose two stages do not
+//   fit at P = 32 (S > 896).
+// - ssd_par "tile": pass 1 keeps the running minimum and the first window
+//   reaching it in registers (a NaN error is the minimum, as for
+//   torch.argmin); pass 2 recomputes the errors of the windows beside it
+//   from the resident samples with the same instructions, so they are
+//   the same bits.  No slab and no scans.
+// - ssd_serial "tile": score cheaply, re-score exactly only the
+//   candidates.  Pass 1 computes an approximate error a_m of every window
+//   in range (fused products, rsqrt.approx, no division) and keeps the
+//   least two, A1 at window m1 and A2.  |a_m - e_m| <= delta (below) for
+//   the exact error e_m of ssd_search, so the first exact minimum lies
+//   among {m : a_m <= A1 + 2 delta}; the code takes the candidates
+//   {m : a_m <= A1 + 3 delta}, the third delta covering the rounding of
+//   the cutoff itself.  Pass 2 computes e_m exactly for the candidates
+//   only and takes the first exact minimum among them (strict '<' in
+//   window order), then the exact errors of its neighbours.  Where A2
+//   lies above the cutoff, m1 is the only candidate: three exact windows
+//   instead of M.  Otherwise a second approximate sweep, the same
+//   instructions on the same resident samples (so the same bits),
+//   finds the candidates.  A pixel that the bound cannot certify runs
+//   ssd_search's serial scan with the exact error over all its windows
+//   from the resident planes: a key norm
+//   outside [2^-60, 2^60] (NaN too), a valid window whose wn2 is not
+//   normal or is below (2^-28 / kn)^2, or a second candidate.  Both
+//   paths give the outputs of ssd_search bit for bit.
+//
+// The bound delta.  u = 2^-24.  Let s = sqrt(wn2) in exact arithmetic;
+// wn2 is the same left-to-right sum of rounded squares in both passes.
+// Cauchy-Schwarz gives sum |w_i k_i| <= |w| |K|, and |w| <= s (1 + 3u),
+// |K| <= kn (1 + 3u), so B = 2 sum |w_i k_i| / (s kn) <= 2 (1 + 6u) bounds
+// both 2 |corr| / (s kn) and the ratio in each error.
+//  - approximate: a = fl(2 - fl(corr_a * fl(2 / kn)) * r), corr_a the
+//    fused sum (five roundings: |corr_a - C| <= 5.01u sum |w_i k_i|), r
+//    = rsqrt.approx(wn2) = (1 + rho) / s with |rho| <= 2^-20 = 16u (the
+//    instruction's error is below 2^-22); so |corr_a fl(2/kn) r - 2C /
+//    (s kn)| <= B (5.01u + 2u + 16u).
+//  - exact: e = fl(2 - fl(2 corr_e / d)), corr_e the plain sum (|corr_e
+//    - C| <= 5.01u sum |w_i k_i|), d = fl(fl(fl(sqrt(wn2)) kn) + 1e-16) =
+//    s kn (1 + t) with |t| <= 3.01u + lambda, lambda = 1e-16 / (s kn) <=
+//    0.46u since the filter asks s kn >= 2^-28; so |2 corr_e / d - 2C /
+//    (s kn)| <= B (5.01u + 4.02u + 0.46u).
+//  - the two last roundings, of results below 4.05 in magnitude: 4.05u
+//    each.
+// So |a - e| <= 2.0001 (23.01u + 9.49u) + 8.1u < 73.2u, plus under-
+// and overflow terms that the ranges above keep below 2^-80.  The code
+// takes delta = 2^-17 = 128u, and fl(A1 + 3 delta) >= A1 + 2 delta
+// whatever the cutoff's own rounding (<= 4u).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <cfloat>
+#include <climits>
 
 namespace {
 
@@ -122,6 +198,19 @@ __device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
       " @!done bra WAIT;\n}" :: "r"(bar), "r"(parity) : "memory");
 }
 
+// ``bytes`` (a multiple of 16, both addresses 16-byte aligned) from
+// global ``src`` to shared ``dst`` under the L2 cache policy ``policy``,
+// completing on ``bar``.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
 // Item q of a block: plane q % S of its tile q / S (the block's tiles are
 // blockIdx.x, blockIdx.x + gridDim.x, ...), copied into stage q % stages
 // under the L2 cache policy ``policy``.
@@ -141,12 +230,7 @@ __device__ __forceinline__ void issue_plane(const float4* V, int S, int P4,
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(bar), "r"(len4 * 16) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
-      :: "r"(ring + (q % stages) * stage_bytes), "l"(src), "r"(len4 * 16),
-         "r"(bar), "l"(policy)
-      : "memory");
+  bulk_copy(ring + (q % stages) * stage_bytes, src, len4 * 16, bar, policy);
 }
 
 __global__ void __launch_bounds__(kBulkThreads)
@@ -366,6 +450,665 @@ __global__ void par_kernel(const float* __restrict__ V,
   en[p] = bm + 1 < M ? errs[(bm + 1) * kParPixels + t] : kInf;
 }
 
+// ------------------------------------------------------------ "tile"
+
+constexpr int kTileStages = 2;           // tiles in flight a block
+constexpr int kTileMaxConsumers = 256;
+constexpr int kTileMaxChunks = 8;        // V's boxes (and barriers) a tile
+constexpr int kTileWarps = 16;           // consumer warps an SM wanted
+// the stages' chunk barriers, then their empty barriers
+constexpr int kTileHeader =
+    (8 * kTileStages * (kTileMaxChunks + 1) + 127) / 128 * 128;
+constexpr float kFilterDelta = 0x1p-17f;  // |a - e| <= delta, see the top
+
+// Where a tile's arrays lie in its stage (bytes from the stage's start):
+// V's planes first (rows of P floats in n_chunks boxes of chunk_rows
+// planes, zeros past S), then K's five rows, mlo and mhi, each on a
+// 128-byte boundary (a box's destination).
+struct TileLayout {
+  int P;
+  int chunk_rows;
+  int n_chunks;
+  int k_off;
+  int lo_off;
+  int hi_off;
+  int stage_bytes;
+};
+
+__device__ __forceinline__ void arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+// The box of ``map`` at (x, y) (pixels, planes) to shared ``dst``,
+// completing on ``bar`` with the whole box's bytes (zeros past the end).
+__device__ __forceinline__ void tensor_copy(uint32_t dst,
+                                            const CUtensorMap* map, int x,
+                                            int y, uint32_t bar,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+         "r"(bar), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// Window index range [m_lo, m_hi] of bounds (lo, hi) over M windows, as
+// sweep.py::ssd_window_bounds (and ssd_search.cu) compute it.
+__device__ __forceinline__ void window_bounds(float lo, float hi, int M,
+                                              int& m_lo, int& m_hi) {
+  if (lo != lo || hi != hi) {
+    m_lo = M;
+    m_hi = -1;
+    return;
+  }
+  float flo = ceilf(lo);
+  flo = flo < 0.0f ? 0.0f : (flo > static_cast<float>(M)
+                             ? static_cast<float>(M) : flo);
+  float fhi = floorf(hi);
+  fhi = fhi < -1.0f ? -1.0f : (fhi > static_cast<float>(M - 1)
+                               ? static_cast<float>(M - 1) : fhi);
+  m_lo = static_cast<int>(flo);
+  m_hi = static_cast<int>(fhi);
+}
+
+// One stage's chunk barriers as a consumer thread waits on them: a
+// thread reads plane r only after need(r).  Chunk 0 also brings K, mlo
+// and mhi.
+struct Chunks {
+  uint32_t bars;    // chunk 0's barrier; chunk c's at bars + 8 c
+  uint32_t parity;
+  int rows;         // planes a chunk
+  int ready;        // chunks waited on
+
+  __device__ __forceinline__ void need(int plane) {
+    while (ready * rows <= plane) {
+      wait_parity(bars + 8 * ready, parity);
+      ++ready;
+    }
+  }
+};
+
+// One pixel's column of a stage: sample r at v[r * P].
+struct Column {
+  const float* v;
+  int P;
+  __device__ __forceinline__ float operator[](int r) const {
+    return v[r * P];
+  }
+};
+
+// ssd_search's error of window m (3e38 when a sample is invalid): plain
+// left-to-right sums of rounded products, the IEEE root and division.
+__device__ __forceinline__ float exact_error(const Column& v, int m,
+                                             const float (&k)[5], float kn) {
+  const float a = v[m], b = v[m + 1], c = v[m + 2], d = v[m + 3],
+              e = v[m + 4];
+  float corr = a * k[0];
+  corr = corr + b * k[1];
+  corr = corr + c * k[2];
+  corr = corr + d * k[3];
+  corr = corr + e * k[4];
+  float wn2 = a * a;
+  wn2 = wn2 + b * b;
+  wn2 = wn2 + c * c;
+  wn2 = wn2 + d * d;
+  wn2 = wn2 + e * e;
+  const bool valid = a >= 0.0f && b >= 0.0f && c >= 0.0f && d >= 0.0f &&
+                     e >= 0.0f;
+  const float denom = sqrtf(wn2) * kn + kEps;
+  return valid ? 2.0f - (2.0f * corr) / denom : kInf;
+}
+
+// ssd_par's error in the rsqrt form of par_kernel, from a window's
+// correlation and norm.  wn2 + 1e-16 is a normal float, where the
+// flush-to-zero root is rsqrtf's.
+__device__ __forceinline__ float par_score(float corr, float wn2,
+                                           float kn_inv) {
+  return 2.0f - 2.0f * corr * rsqrt_approx(wn2 + kEps) * kn_inv;
+}
+
+// par_score of window m (3e38 when a sample is invalid).
+__device__ __forceinline__ float par_error(const Column& v, int m,
+                                           const float (&k)[5],
+                                           float kn_inv) {
+  const float a = v[m], b = v[m + 1], c = v[m + 2], d = v[m + 3],
+              e = v[m + 4];
+  float corr = a * k[0];
+  corr = corr + b * k[1];
+  corr = corr + c * k[2];
+  corr = corr + d * k[3];
+  corr = corr + e * k[4];
+  float wn2 = a * a;
+  wn2 = wn2 + b * b;
+  wn2 = wn2 + c * c;
+  wn2 = wn2 + d * d;
+  wn2 = wn2 + e * e;
+  const bool valid = a >= 0.0f && b >= 0.0f && c >= 0.0f && d >= 0.0f &&
+                     e >= 0.0f;
+  return valid ? par_score(corr, wn2, kn_inv) : kInf;
+}
+
+struct Result {
+  int bm;
+  float ec, ep, en;
+};
+
+// The five-sample window sliding over a pixel's planes in registers:
+// each sample read, squared and tested once for the five windows that
+// read it.
+struct Window {
+  float s0, s1, s2, s3, q0, q1, q2, q3;
+  int last_bad;   // the last sample read that is not >= 0
+
+  // samples lo .. lo + 3
+  __device__ __forceinline__ void start(const Column& v, int lo) {
+    s0 = v[lo];
+    s1 = v[lo + 1];
+    s2 = v[lo + 2];
+    s3 = v[lo + 3];
+    q0 = s0 * s0;
+    q1 = s1 * s1;
+    q2 = s2 * s2;
+    q3 = s3 * s3;
+    last_bad = -1;
+    if (!(s0 >= 0.0f)) last_bad = lo;
+    if (!(s1 >= 0.0f)) last_bad = lo + 1;
+    if (!(s2 >= 0.0f)) last_bad = lo + 2;
+    if (!(s3 >= 0.0f)) last_bad = lo + 3;
+  }
+
+  // window m's plain wn2 with its fifth sample s4 (square q4) read; the
+  // window is valid where last_bad < m afterwards
+  __device__ __forceinline__ float push(float s4, float q4, int m) {
+    if (!(s4 >= 0.0f)) last_bad = m + 4;
+    float wn2 = q0;
+    wn2 = wn2 + q1;
+    wn2 = wn2 + q2;
+    wn2 = wn2 + q3;
+    wn2 = wn2 + q4;
+    return wn2;
+  }
+
+  __device__ __forceinline__ void shift(float s4, float q4) {
+    s0 = s1;
+    s1 = s2;
+    s2 = s3;
+    s3 = s4;
+    q0 = q1;
+    q1 = q2;
+    q2 = q3;
+    q3 = q4;
+  }
+};
+
+// ssd_par "tile" for one pixel over its windows lo .. hi.
+__device__ __forceinline__ Result par_pixel(const Column& v,
+                                            const float (&k)[5], int lo,
+                                            int hi, Chunks& ch) {
+  float kk = k[0] * k[0];
+  kk = kk + k[1] * k[1];
+  kk = kk + k[2] * k[2];
+  kk = kk + k[3] * k[3];
+  kk = kk + k[4] * k[4];
+  const float kn_inv = rsqrtf(kk + kEps);
+  float b = FLT_MAX;   // above every masked window's 3e38
+  int bm = -1;
+  if (lo <= hi) {
+    ch.need(lo + 3);
+    Window w;
+    w.start(v, lo);
+    int m = lo;
+    while (m <= hi) {   // the windows of each chunk as it arrives
+      ch.need(m + 4);
+      const int stop = min(hi, ch.ready * ch.rows - 5);
+#pragma unroll 4
+      for (; m <= stop; ++m) {
+        const float s4 = v[m + 4];
+        const float q4 = s4 * s4;
+        const float wn2 = w.push(s4, q4, m);
+        float corr = w.s0 * k[0];
+        corr = corr + w.s1 * k[1];
+        corr = corr + w.s2 * k[2];
+        corr = corr + w.s3 * k[3];
+        corr = corr + s4 * k[4];
+        const float score = par_score(corr, wn2, kn_inv);
+        const float err = w.last_bad < m ? score : kInf;
+        // the first minimum; a NaN is the minimum, as for torch.argmin
+        if (!(err >= b) && b == b) {
+          b = err;
+          bm = m;
+        }
+        w.shift(s4, q4);
+      }
+    }
+  }
+  if (bm < 0 || b >= kInf) return Result{-1, kInf, kInf, kInf};
+  return Result{bm, b, bm > lo ? par_error(v, bm - 1, k, kn_inv) : kInf,
+                bm < hi ? par_error(v, bm + 1, k, kn_inv) : kInf};
+}
+
+// Pass 1's approximate error of the window of w's samples and s4, whose
+// plain norm is wn2: fused products, rsqrt.approx, no division.
+__device__ __forceinline__ float approx_error(const Window& w, float s4,
+                                              float wn2, const float (&k)[5],
+                                              float kinv2) {
+  float corr = w.s0 * k[0];
+  corr = __fmaf_rn(w.s1, k[1], corr);
+  corr = __fmaf_rn(w.s2, k[2], corr);
+  corr = __fmaf_rn(w.s3, k[3], corr);
+  corr = __fmaf_rn(s4, k[4], corr);
+  return __fmaf_rn(-(corr * kinv2), rsqrt_approx(wn2), 2.0f);
+}
+
+// Re-score counts of ssd_serial "tile", a thread's share.
+struct Rescores {
+  unsigned exact;   // windows scored exactly
+  unsigned scan;    // pixels that scanned every window exactly
+  unsigned sweep;   // pixels with more than one candidate
+};
+
+// ssd_serial "tile" for one pixel over its windows lo .. hi.
+__device__ __forceinline__ Result serial_pixel(const Column& v,
+                                               const float (&k)[5], int lo,
+                                               int hi, Chunks& ch,
+                                               Rescores& n) {
+  float kk = k[0] * k[0];
+  kk = kk + k[1] * k[1];
+  kk = kk + k[2] * k[2];
+  kk = kk + k[3] * k[3];
+  kk = kk + k[4] * k[4];
+  const float kn = sqrtf(kk) + kEps;
+  if (kn >= 0x1p-60f && kn <= 0x1p60f && lo <= hi) {
+    // pass 1: approximate errors, the least two and where the least is,
+    // and the least and largest wn2 of the valid windows
+    const float kinv2 = 2.0f / kn;
+    const float tk = 0x1p-28f / kn;
+    // s kn >= 2^-28 where wn2 > tk^2, and wn2 is normal
+    const float thr = fmaxf(nextafterf(tk * tk, FLT_MAX), 0x1p-126f);
+    float A1 = FLT_MAX, A2 = FLT_MAX, low = FLT_MAX, high = 0.0f;
+    int m1 = -1;
+    ch.need(lo + 3);
+    Window w;
+    w.start(v, lo);
+    int m = lo;
+    while (m <= hi) {   // the windows of each chunk as it arrives
+      ch.need(m + 4);
+      const int stop = min(hi, ch.ready * ch.rows - 5);
+#pragma unroll 4
+      for (; m <= stop; ++m) {
+        const float s4 = v[m + 4];
+        const float q4 = s4 * s4;
+        const float wn2 = w.push(s4, q4, m);
+        const float a = approx_error(w, s4, wn2, k, kinv2);
+        const bool valid = w.last_bad < m;
+        const float av = valid ? a : FLT_MAX;
+        low = fminf(low, valid ? wn2 : FLT_MAX);
+        high = fmaxf(high, valid ? wn2 : 0.0f);
+        A2 = fminf(A2, fmaxf(A1, av));
+        if (av < A1) m1 = m;
+        A1 = fminf(A1, av);
+        w.shift(s4, q4);
+      }
+    }
+    // where wn2 lies in [thr, FLT_MAX] and kn in [2^-60, 2^60], |a - e|
+    // <= delta (and |a| < 4.1) on every valid window
+    if (low >= thr && high <= FLT_MAX) {
+      if (m1 < 0) return Result{-1, kInf, kInf, kInf};   // no valid window
+      // pass 2: the first exact minimum among the candidates, then its
+      // neighbours' exact errors
+      const float cutoff = A1 + 3.0f * kFilterDelta;
+      int bm = m1;
+      float best;
+      if (A2 > cutoff) {   // m1 alone
+        best = exact_error(v, m1, k, kn);
+        n.exact += 1;
+      } else {             // a second sweep finds the candidates
+        n.sweep += 1;
+        best = kInf;
+        w.start(v, lo);
+        for (int j = lo; j <= hi; ++j) {
+          const float s4 = v[j + 4];
+          const float q4 = s4 * s4;
+          const float wn2 = w.push(s4, q4, j);
+          if (w.last_bad < j &&
+              approx_error(w, s4, wn2, k, kinv2) <= cutoff) {
+            const float err = exact_error(v, j, k, kn);
+            n.exact += 1;
+            if (err < best) {
+              best = err;
+              bm = j;
+            }
+          }
+          w.shift(s4, q4);
+        }
+      }
+      n.exact += (bm > lo) + (bm < hi);
+      return Result{bm, best, bm > lo ? exact_error(v, bm - 1, k, kn) : kInf,
+                    bm < hi ? exact_error(v, bm + 1, k, kn) : kInf};
+    }
+  }
+  // the exact scan of ssd_search (windows outside lo .. hi score 3e38 and
+  // change nothing there)
+  n.scan += lo <= hi;
+  n.exact += max(hi - lo + 1, 0);
+  ch.need(hi + 4);
+  Result r{-1, kInf, kInf, kInf};
+  float best = kInf, prev = kInf;
+  for (int m = lo; m <= hi; ++m) {
+    const float err = exact_error(v, m, k, kn);
+    if (m == r.bm + 1) r.en = err;
+    if (err < best) {
+      r.ep = prev;
+      r.en = kInf;
+      r.ec = err;
+      r.bm = m;
+      best = err;
+    }
+    prev = err;
+  }
+  return r;
+}
+
+template <bool kSerial>
+__global__ void __launch_bounds__(32 + kTileMaxConsumers)
+tile_kernel(const __grid_constant__ CUtensorMap map_v,
+            const __grid_constant__ CUtensorMap map_k,
+            const float* __restrict__ mlo, const float* __restrict__ mhi,
+            int S, int N, TileLayout lay, int n_tiles,
+            int* __restrict__ best, float* __restrict__ ec,
+            float* __restrict__ ep, float* __restrict__ en,
+            unsigned long long* __restrict__ counts) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // full barrier of chunk c of stage st: full0 + 8 (st kTileMaxChunks + c)
+  const uint32_t full0 = shared_addr(smem);
+  const uint32_t empty0 = full0 + 8 * kTileStages * kTileMaxChunks;
+  const int consumer_warps = static_cast<int>(blockDim.x) / 32 - 1;
+  const int P = lay.P;
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < kTileStages; ++d) {
+      for (int c = 0; c < lay.n_chunks; ++c)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     :: "r"(full0 + 8 * (d * kTileMaxChunks + c))
+                     : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(empty0 + 8 * d), "r"(consumer_warps) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();   // the last block-wide barrier: the roles split here
+
+  if (threadIdx.x < 32) {
+    // ------------------------------------------------------ producer
+    if (threadIdx.x != 0) return;
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+                 : "=l"(policy));
+    const uint32_t chunk_bytes = 4u * lay.chunk_rows * P;
+    int j = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++j) {
+      const int st = j % kTileStages;
+      const int p0 = t * P;
+      const int len = min(P, N - p0);
+      const uint32_t full = full0 + 8 * st * kTileMaxChunks;
+      const uint32_t stage = full0 + kTileHeader + st * lay.stage_bytes;
+      wait_parity(empty0 + 8 * st, ((j / kTileStages) & 1) ^ 1);
+      // the consumers' reads of this stage before the async writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      // chunk 0 with K, mlo and mhi, then the other chunks in plane order
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(full), "r"(chunk_bytes + 4u * (5 * P + 2 * len))
+                   : "memory");
+      tensor_copy(stage + lay.k_off, &map_k, p0, 0, full, policy);
+      bulk_copy(stage + lay.lo_off, mlo + p0, 4 * len, full, policy);
+      bulk_copy(stage + lay.hi_off, mhi + p0, 4 * len, full, policy);
+      tensor_copy(stage, &map_v, p0, 0, full, policy);
+      for (int c = 1; c < lay.n_chunks; ++c) {
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+            :: "r"(full + 8 * c), "r"(chunk_bytes) : "memory");
+        tensor_copy(stage + c * chunk_bytes, &map_v, p0, c * lay.chunk_rows,
+                    full + 8 * c, policy);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  const int c = threadIdx.x - 32;
+  const int M = S - 4;
+  Rescores n{0, 0, 0};
+  int j = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++j) {
+    const int st = j % kTileStages;
+    const int p0 = t * P;
+    const int len = min(P, N - p0);
+    const unsigned char* stage = smem + kTileHeader + st * lay.stage_bytes;
+    Chunks ch{full0 + 8 * st * kTileMaxChunks,
+              static_cast<uint32_t>((j / kTileStages) & 1), lay.chunk_rows,
+              0};
+    ch.need(0);
+    if (c < len) {
+      const Column v{reinterpret_cast<const float*>(stage) + c, P};
+      const float* kp = reinterpret_cast<const float*>(stage + lay.k_off) + c;
+      const float k[5] = {kp[0], kp[P], kp[2 * P], kp[3 * P], kp[4 * P]};
+      int lo, hi;
+      window_bounds(reinterpret_cast<const float*>(stage + lay.lo_off)[c],
+                    reinterpret_cast<const float*>(stage + lay.hi_off)[c], M,
+                    lo, hi);
+      const Result r =
+          kSerial ? serial_pixel(v, k, lo, hi, ch, n)
+                  : par_pixel(v, k, lo, hi, ch);
+      best[p0 + c] = r.bm;
+      ec[p0 + c] = r.ec;
+      ep[p0 + c] = r.ep;
+      en[p0 + c] = r.en;
+    }
+    // every copy into the stage has landed before the stage is released
+    ch.need(lay.n_chunks * lay.chunk_rows - 1);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) arrive(empty0 + 8 * st);
+  }
+  if (kSerial && counts != nullptr) {
+    const unsigned exact = __reduce_add_sync(0xffffffffu, n.exact);
+    const unsigned scan = __reduce_add_sync(0xffffffffu, n.scan);
+    const unsigned sweep = __reduce_add_sync(0xffffffffu, n.sweep);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(counts, static_cast<unsigned long long>(exact));
+      atomicAdd(counts + 1, static_cast<unsigned long long>(scan));
+      atomicAdd(counts + 2, static_cast<unsigned long long>(sweep));
+    }
+  }
+}
+
+struct TilePlan {
+  TileLayout lay;
+  int n_tiles;
+  int grid;
+  int threads;
+  int shared;
+  int blocks_per_sm;
+};
+
+int round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// The stage layout of tiles of P pixels (P % 4 == 0) at S planes: V in
+// up to kTileMaxChunks boxes of a multiple of 8 planes (every box's
+// destination on 128 bytes).
+TileLayout tile_layout(int S, int P) {
+  TileLayout lay;
+  lay.P = P;
+  const int n = std::min(kTileMaxChunks, (S + 7) / 8);
+  lay.chunk_rows = round_up((S + n - 1) / n, 8);
+  lay.n_chunks = (S + lay.chunk_rows - 1) / lay.chunk_rows;
+  lay.k_off = 4 * lay.n_chunks * lay.chunk_rows * P;
+  lay.lo_off = lay.k_off + round_up(4 * 5 * P, 128);
+  lay.hi_off = lay.lo_off + round_up(4 * P, 128);
+  lay.stage_bytes = lay.hi_off + round_up(4 * P, 128);
+  return lay;
+}
+
+int tile_shared_bytes(const TileLayout& lay) {
+  return kTileHeader + kTileStages * lay.stage_bytes;
+}
+
+template <bool kSerial>
+const void* tile_kernel_ptr() {
+  return reinterpret_cast<const void*>(tile_kernel<kSerial>);
+}
+
+// The plan of S planes over N pixels on the current device: the largest
+// of the consumer counts 256, 128, 64 and 32 whose blocks give an SM
+// kTileWarps consumer warps, else the one with the most resident pixels
+// an SM; then P <= it, a multiple of 4, that cuts N into tiles splitting
+// evenly over the grid.  A box row is at most 256 pixels and a chunk at
+// most 256 planes (S <= 896 fits at P = 32).  Plans are kept a device
+// and shape: the occupancy query costs more host time than the launch.
+int plan_tile(bool serial, int S, long N, TilePlan* plan) {
+  if (S < 5 || N < 1 || N > INT_MAX / 2 || N % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  struct Known {
+    int device, S, serial;
+    long N;
+    TilePlan plan;
+  };
+  constexpr int kKnown = 16;
+  thread_local Known known[kKnown];
+  thread_local int n_known = 0;
+  for (int i = 0; i < std::min(n_known, kKnown); ++i) {
+    const Known& k = known[i];
+    if (k.device == device && k.S == S && k.N == N && k.serial == serial) {
+      *plan = k.plan;
+      return 0;
+    }
+  }
+  int sms = 0;
+  status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  device);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const void* kernel = serial ? tile_kernel_ptr<true>()
+                              : tile_kernel_ptr<false>();
+  status = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  int best_c = 0, best_occ = 0;
+  for (int c = kTileMaxConsumers; c >= 32; c /= 2) {
+    const int shared = tile_shared_bytes(tile_layout(S, c));
+    if (shared > kMaxSharedBytes) continue;
+    int occ = 0;
+    status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel,
+                                                           32 + c, shared);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    if (occ * c >= 32 * kTileWarps) {
+      best_c = c;
+      best_occ = occ;
+      break;
+    }
+    if (occ * c > best_occ * best_c) {
+      best_c = c;
+      best_occ = occ;
+    }
+  }
+  if (best_occ == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long blocks = static_cast<long>(sms) * best_occ;
+  const long k = (N + blocks * best_c - 1) / (blocks * best_c);
+  const int P = std::min(
+      best_c,
+      round_up(static_cast<int>((N + blocks * k - 1) / (blocks * k)), 4));
+  plan->lay = tile_layout(S, P);
+  plan->n_tiles = static_cast<int>((N + P - 1) / P);
+  plan->grid = static_cast<int>(std::min<long>(blocks, plan->n_tiles));
+  plan->threads = 32 + round_up(P, 32);
+  plan->shared = tile_shared_bytes(plan->lay);
+  plan->blocks_per_sm = best_occ;
+  known[n_known++ % kKnown] = Known{device, S, serial ? 1 : 0, N, *plan};
+  return 0;
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (this
+// library does not link libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#endif
+  }
+  return fn;
+}
+
+// A (planes, N) float32 tensor at ``base`` read in boxes of box_y planes
+// by box_x pixels.
+int encode_map(CUtensorMap* map, const float* base, int N, int planes,
+               int box_x, int box_y) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_x),
+                             static_cast<cuuint32_t>(box_y)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult status = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return status == CUDA_SUCCESS ? 0
+                                : static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <bool kSerial>
+int tile_launch(const float* V, const float* K, const float* mlo,
+                const float* mhi, int S, int H, int W, int* best, float* ec,
+                float* ep, float* en, unsigned long long* counts,
+                void* stream) {
+  if (!(aligned16(V) && aligned16(K) && aligned16(mlo) && aligned16(mhi)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TilePlan plan;
+  int status = plan_tile(kSerial, S, static_cast<long>(H) * W, &plan);
+  if (status != 0) return status;
+  const int N = H * W;
+  CUtensorMap map_v{}, map_k{};
+  status = encode_map(&map_v, V, N, S, plan.lay.P, plan.lay.chunk_rows);
+  if (status == 0) status = encode_map(&map_k, K, N, 5, plan.lay.P, 5);
+  if (status != 0) return status;
+  tile_kernel<kSerial><<<plan.grid, plan.threads, plan.shared,
+                         static_cast<cudaStream_t>(stream)>>>(
+      map_v, map_k, mlo, mhi, S, N, plan.lay, plan.n_tiles, best, ec, ep, en,
+      counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each launcher runs on ``stream`` and returns cudaGetLastError() as an
@@ -474,4 +1217,46 @@ extern "C" int ssd_par_launch(const float* V, const float* K,
   par_kernel<<<blocks, kParPixels, bytes, static_cast<cudaStream_t>(stream)>>>(
       V, K, mlo, mhi, S, H, W, best, ec, ep, en);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The "tile" plan of S planes at H x W on the current device for
+// ssd_serial (``serial`` 1) or ssd_par (0): fills out[0..7] with P, the
+// tiles, the grid, the threads a block, its dynamic shared memory, the
+// blocks an SM, the chunks of V a tile and the planes a chunk.  Returns
+// cudaErrorInvalidValue where H * W % 4 != 0 or where two stages do not
+// fit in a block's shared memory even at P = 32 (S > 896).
+extern "C" int ssd_tile_config(int S, int H, int W, int serial, int* out) {
+  TilePlan plan;
+  const int status = plan_tile(serial != 0, S, static_cast<long>(H) * W,
+                               &plan);
+  if (status != 0) return status;
+  const int values[] = {plan.lay.P, plan.n_tiles, plan.grid, plan.threads,
+                        plan.shared, plan.blocks_per_sm, plan.lay.n_chunks,
+                        plan.lay.chunk_rows};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
+  return 0;
+}
+
+// ssd_serial "tile".  ``counts`` (three uint64 on the device, or null)
+// gains the windows scored exactly, the pixels that ran the whole exact
+// scan and the pixels that swept again for more than one candidate.  Refuses (cudaErrorInvalidValue) what ssd_tile_config
+// refuses and inputs off the 16-byte grid.
+extern "C" int ssd_serial_tile_launch(const float* V, const float* K,
+                                      const float* mlo, const float* mhi,
+                                      int S, int H, int W, int* best,
+                                      float* ec, float* ep, float* en,
+                                      unsigned long long* counts,
+                                      void* stream) {
+  return tile_launch<true>(V, K, mlo, mhi, S, H, W, best, ec, ep, en, counts,
+                           stream);
+}
+
+// ssd_par "tile"; refuses as ssd_serial_tile_launch does.
+extern "C" int ssd_par_tile_launch(const float* V, const float* K,
+                                   const float* mlo, const float* mhi,
+                                   int S, int H, int W, int* best,
+                                   float* ec, float* ep, float* en,
+                                   void* stream) {
+  return tile_launch<false>(V, K, mlo, mhi, S, H, W, best, ec, ep, en,
+                            nullptr, stream);
 }

@@ -1,14 +1,17 @@
 """Probes of the SSD window search on the card (counterpart of
-``benchmarks/exp_ssd.py``): the V-read floor, the serial search's tile
-sweep and the two-pass search with its error slab in shared memory.
+``benchmarks/exp_ssd.py``): the V-read floor, the serial search and the
+two-pass search, each in two designs ("thread" and "tile" for
+``ssd_serial``, "slab" and "tile" for ``ssd_par``; ``design=``).
 
     python -m tadataka_torch.probes.exp_ssd
 
 runs them on the card at 480x640 on ``exp_ssd.py``'s inputs (uniform V
 and K from a seeded generator, full window bounds) and prints each
 time in ms, the floor's GB/s at S = 32, 48, 128 and 256 in every
-variant beside ``torch.sum(V, 0)`` (also with a clean L2), and the
-serial-against-par ``max|diff|`` lines.  It needs a CUDA device.
+variant beside ``torch.sum(V, 0)`` (also with a clean L2), the designs
+of both searches timed in turns, the re-score counts of ``ssd_serial``
+"tile", and the serial-against-par ``max|diff|`` lines.  It needs a
+CUDA device.
 
 Each probe is a hand-written kernel (``csrc/ssd_probes.cu``) with a
 plain PyTorch version beside it.  A wrapper launches its kernel on CUDA
@@ -20,11 +23,14 @@ import statistics
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from tadataka_torch.core.rounding import sqrt
 from tadataka_torch.vo.semi_dense.estimator import EPSILON
 from tadataka_torch.vo.semi_dense.sweep import (
-    _INF, _check_ssd_inputs, ssd_search, ssd_search_reference)
+    _INF, _check_ssd_inputs, _window_errors, ssd_search, ssd_search_reference,
+    ssd_window_bounds)
 
 SHAPE = (480, 640)
 PLANES = (32, 48, 128, 256)
@@ -37,6 +43,18 @@ COPY_VARIANTS = tuple(("threads", vec, rows) for vec in (1, 4)
 COPY_DEFAULT = ("bulk", 4, 1)
 SERIAL_VARIANTS = tuple((cols, rows) for cols in (1, 2, 4)
                         for rows in (2, 8, 16))
+# the designs of ssd_serial and ssd_par.  ssd_par's default is "tile",
+# the faster of its two at every S measured; ssd_serial's default comes
+# from S (serial_design): "tile" up to SERIAL_TILE_MAX_S planes and
+# "thread" above, the faster of the two there on the probe inputs at
+# 480x640 on the card (PERF.md)
+SERIAL_DESIGNS = ("tile", "thread")
+PAR_DESIGNS = ("tile", "slab")
+SERIAL_TILE_MAX_S = 128
+# |a - e| <= FILTER_DELTA for the "tile" serial search's approximate error
+# a of every window it certifies (the bound is derived in
+# csrc/ssd_probes.cu, kFilterDelta)
+FILTER_DELTA = 2.0 ** -17
 
 _SOURCE = Path(__file__).parent / "csrc" / "ssd_probes.cu"
 _library = None
@@ -50,18 +68,21 @@ def probe_library():
         from tadataka_torch.cuda_build import build
         built = build(_SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        built.lib.ssd_copy_floor_launch.argtypes = [ptr] + [i32] * 5 + [
+        lib = built.lib
+        lib.ssd_copy_floor_launch.argtypes = [ptr] + [i32] * 5 + [ptr, ptr]
+        lib.ssd_copy_floor_bulk_launch.argtypes = [ptr] + [i32] * 5 + [
             ptr, ptr]
-        built.lib.ssd_copy_floor_bulk_launch.argtypes = [ptr] + [i32] * 5 + [
-            ptr, ptr]
-        built.lib.ssd_serial_launch.argtypes = [ptr] * 4 + [i32] * 5 + [
-            ptr] * 5
-        built.lib.ssd_par_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 5
-        built.lib.ssd_par_shared_bytes.argtypes = [i32]
-        for fn in (built.lib.ssd_copy_floor_launch,
-                   built.lib.ssd_copy_floor_bulk_launch,
-                   built.lib.ssd_serial_launch, built.lib.ssd_par_launch,
-                   built.lib.ssd_par_shared_bytes):
+        lib.ssd_serial_launch.argtypes = [ptr] * 4 + [i32] * 5 + [ptr] * 5
+        lib.ssd_par_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 5
+        lib.ssd_par_shared_bytes.argtypes = [i32]
+        lib.ssd_tile_config.argtypes = [i32] * 4 + [ptr]
+        lib.ssd_serial_tile_launch.argtypes = [ptr] * 4 + [i32] * 3 + [
+            ptr] * 6
+        lib.ssd_par_tile_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 5
+        for fn in (lib.ssd_copy_floor_launch, lib.ssd_copy_floor_bulk_launch,
+                   lib.ssd_serial_launch, lib.ssd_par_launch,
+                   lib.ssd_par_shared_bytes, lib.ssd_tile_config,
+                   lib.ssd_serial_tile_launch, lib.ssd_par_tile_launch):
             fn.restype = i32
         _library = built
     return _library
@@ -149,22 +170,236 @@ ssd_copy_floor.launches = 0
 # The serial probe computes exactly what ssd_search computes.
 ssd_serial_reference = ssd_search_reference
 
+_FLOAT_MAX = torch.finfo(torch.float32).max
 
-def ssd_serial(V, K, mlo, mhi, cols_per_thread=1, rows_per_block=8):
+
+def _take(x, index):
+    return torch.take_along_dim(x, index[None], dim=0)[0]
+
+
+def _serial_scan(errs):
+    """ssd_search's serial scan over the exact errors (M, H, W): strict
+    ``<`` from 3e38 on, so the earliest window wins a tie and a NaN
+    error is never the best; ep the previous window's error, en the next
+    one's (3e38 outside the windows); a pixel with no best keeps en =
+    errs[0], as the scan leaves it.  It equals ssd_search_reference
+    wherever no window's error is NaN."""
+    M = errs.shape[0]
+    ranked = torch.where(torch.isnan(errs), _INF, errs)
+    best = torch.argmin(ranked, dim=0)
+    none = _take(ranked, best) >= _INF
+    ep = torch.where(best == 0, _INF, _take(errs, torch.clamp(best - 1,
+                                                              min=0)))
+    en = torch.where(best == M - 1, _INF,
+                     _take(errs, torch.clamp(best + 1, max=M - 1)))
+    return (torch.where(none, -1, best).to(torch.int32),
+            torch.where(none, _INF, _take(errs, best)),
+            torch.where(none, _INF, ep), torch.where(none, errs[0], en))
+
+
+def filter_approx_errors(V, K, rho=0.0):
+    """Pass 1 of ssd_serial "tile" in plain PyTorch: the approximate
+    error of every window (M, H, W), a = 2 - fl(corr * fl(2 / kn)) * r
+    with one rounding (a fused multiply-add), corr a fused sum (each
+    product added with one rounding) and r = rsqrt(wn2) (1 + rho), a
+    stand-in for the card's rsqrt.approx, rounded once; wn2 and kn are
+    the exact search's.  Returns (a, wn2, kn)."""
+    M = V.shape[0] - 4
+    w = [V[k:k + M] for k in range(5)]
+    kk = K[0] * K[0]
+    wn2 = w[0] * w[0]
+    corr = w[0] * K[0]
+    for k in range(1, 5):
+        kk = kk + K[k] * K[k]
+        wn2 = wn2 + w[k] * w[k]
+        corr = (w[k].double() * K[k].double() + corr.double()).float()
+    kn = sqrt(kk) + EPSILON
+    r = (torch.rsqrt(wn2.double()) * (1.0 + rho)).float()
+    x = corr * (torch.full_like(kn, 2.0) / kn)
+    return (2.0 - x.double() * r.double()).float(), wn2, kn
+
+
+def _filter(V, K, mlo, mhi, approx):
+    """The plain filter's state: exact errors, window range, validity,
+    the certified pixels and each window's candidacy."""
+    S = V.shape[0]
+    M = S - 4
+    a, wn2, kn = filter_approx_errors(V, K)
+    if approx is not None:
+        a = approx
+    lo, hi = (x.long() for x in ssd_window_bounds(mlo, mhi, S))
+    m = torch.arange(M, device=V.device)[:, None, None]
+    nonneg = V >= 0.0
+    valid = (m >= lo) & (m <= hi)
+    for k in range(5):
+        valid = valid & nonneg[k:k + M]
+    tk = torch.full_like(kn, 2.0 ** -28) / kn
+    window_ok = (wn2 > tk * tk) & (wn2 >= 2.0 ** -126) & (wn2 <= _FLOAT_MAX)
+    trusted = (kn >= 2.0 ** -60) & (kn <= 2.0 ** 60) & ~(
+        valid & ~window_ok).any(0)
+    ranked = torch.where(valid, a, _FLOAT_MAX)
+    cutoff = ranked.min(0).values + torch.tensor(3.0 * FILTER_DELTA)
+    return dict(errs=_window_errors(V, K, mlo, mhi), lo=lo, hi=hi,
+                valid=valid, scan=(lo <= hi) & ~trusted,
+                certified=trusted & valid.any(0),
+                candidate=valid & (ranked <= cutoff))
+
+
+def ssd_serial_filter_reference(V, K, mlo, mhi, approx=None):
+    """Plain version of ssd_serial "tile": the candidate filter.  ``approx``
+    (M, H, W) replaces the approximate errors of
+    :func:`filter_approx_errors`; the outputs are ssd_search's exact ones
+    wherever |approx - exact| <= FILTER_DELTA on every window.
+
+    A pixel is certified where its kn lies in [2^-60, 2^60] and every
+    window in its bounds with valid samples has a normal wn2 above
+    (2^-28 / kn)^2.  A certified pixel's candidates are its valid
+    windows whose approximate error is at most the least one plus 3
+    FILTER_DELTA; it takes the first exact minimum among them and its
+    neighbours' exact errors.  Any other pixel runs the serial scan over
+    the exact errors.  Returns ((best, ec, ep, en), (windows scored
+    exactly, pixels that ran the whole exact scan, certified pixels with
+    more than one candidate))."""
+    f = _filter(V, K, mlo, mhi, approx)
+    errs, lo, hi, ok = f["errs"], f["lo"], f["hi"], f["certified"]
+    M = errs.shape[0]
+    b = torch.argmin(torch.where(f["candidate"], errs, np.inf), dim=0)
+    best, ec, ep, en = _serial_scan(errs)
+    out = (torch.where(ok, b.to(torch.int32), best),
+           torch.where(ok, _take(errs, b), ec),
+           torch.where(ok, torch.where(
+               b > lo, _take(errs, torch.clamp(b - 1, min=0)), _INF), ep),
+           torch.where(ok, torch.where(
+               b < hi, _take(errs, torch.clamp(b + 1, max=M - 1)), _INF),
+               en))
+    n_candidates = f["candidate"].sum(0)
+    scan = f["scan"]
+    n_exact = torch.where(ok, n_candidates + (b > lo).long()
+                          + (b < hi).long(), 0) + torch.where(
+        scan, hi - lo + 1, 0)
+    return out, (int(n_exact.sum()), int(scan.sum()),
+                 int((ok & (n_candidates > 1)).sum()))
+
+
+def filter_census(V, K, mlo, mhi):
+    """Why the plain filter of ssd_serial "tile" re-scores what it does,
+    in pixel counts: "windows" (a window in bounds), "scan" (the exact
+    scan: a key norm or a valid window's wn2 out of the certified
+    ranges), "one" (one candidate), "several" (two
+    candidates or more; "candidates": their mean count), and "exact_tie"
+    (the two least exact errors of a pixel are equal)."""
+    f = _filter(V, K, mlo, mhi, None)
+    live = f["lo"] <= f["hi"]
+    n = f["candidate"].sum(0)
+    ok = f["certified"]
+    two = torch.topk(torch.where(f["valid"], f["errs"], np.inf),
+                     min(2, f["errs"].shape[0]), dim=0, largest=False).values
+    tie = f["valid"].sum(0) > 1
+    if two.shape[0] > 1:
+        tie = tie & (two[0] == two[1])
+    several = ok & (n > 1)
+    return dict(windows=int(live.sum()), scan=int(f["scan"].sum()),
+                one=int((ok & (n == 1)).sum()), several=int(several.sum()),
+                candidates=float(n[several].float().mean()) if several.any()
+                else 0.0, exact_tie=int(tie.sum()))
+
+
+def tile_config(S, H, W, serial):
+    """The "tile" plan of ``ssd_serial`` (``serial`` True) or ``ssd_par``
+    at S planes and H x W on the current card: a dict of P (pixels a
+    tile), tiles, grid, threads a block, shared bytes a block, blocks an
+    SM, chunks of V a tile (a TMA box and an mbarrier each) and planes a
+    chunk.  Raises ValueError where
+    "tile" refuses the shape: H * W % 4 != 0 (a TMA box reads rows of
+    whole 16-byte vectors), or two tiles of S planes that do not fit in
+    a block's shared memory even at P = 32 (S > 896)."""
+    import ctypes
+    name = "ssd_serial" if serial else "ssd_par"
+    if H * W % 4:
+        raise ValueError(f'{name} "tile" needs H * W % 4 == 0 (its TMA boxes '
+                         f"read whole 16-byte vectors), got {H}x{W}")
+    out = (ctypes.c_int * 8)()
+    lib = probe_library().lib
+    if lib.ssd_tile_config(S, H, W, int(serial), out) != 0:
+        raise ValueError(f'{name} "tile": two tiles of S={S} planes do not '
+                         "fit in a block's shared memory")
+    return dict(zip(("tile", "tiles", "grid", "threads", "shared_bytes",
+                     "blocks_per_sm", "chunks", "chunk_rows"), out))
+
+
+def _check_design(name, design, designs):
+    if design not in designs:
+        raise ValueError(f"{name}: no design {design!r}; one of {designs}")
+
+
+def serial_design(S):
+    """ssd_serial's design at S planes where the caller names none."""
+    return "tile" if S <= SERIAL_TILE_MAX_S else "thread"
+
+
+def ssd_serial(V, K, mlo, mhi, cols_per_thread=1, rows_per_block=8,
+               design=None, rescore=None):
     """The serial SSD window search of ``ssd_search`` (same inputs and
-    outputs, bit-equal) with ``cols_per_thread`` = 1, 2 or 4 adjacent
-    columns per thread and blocks of 32 x ``rows_per_block`` threads."""
+    outputs, bit-equal) in one of two designs (``design``; None takes
+    :func:`serial_design` of V's S planes):
+
+    - "thread": one thread a pixel (``cols_per_thread`` = 1, 2 or 4
+      adjacent columns, blocks of 32 x ``rows_per_block`` threads), the
+      IEEE root and division on every window;
+    - "tile": the planes of a tile of pixels resident in shared memory
+      (TMA loads on a persistent grid); an approximate pass picks the
+      candidate windows (a second approximate sweep finds them where
+      there are several), which alone are scored exactly, and a pixel
+      the filter cannot certify scans all its windows exactly
+      (:func:`ssd_serial_filter_reference` is its plain version).
+      Refuses (ValueError) H * W % 4 != 0 and S > 896 (see
+      :func:`tile_config`); ``rescore``, a (3,) int64 tensor on V's
+      device, gains the windows scored exactly, the pixels that ran the
+      whole exact scan and the pixels with more than one candidate
+      (only "tile" takes it).
+
+    The default follows S alone, as measured on uniform random inputs.
+    Where nearly every window lies within the filter's 3 delta of the
+    least, as in the `tent` search of a camera frame (smooth texture),
+    "tile" scores most windows twice and "thread" is the faster
+    (PERF.md): name it there.
+
+    On CPU tensors "thread" runs ``ssd_serial_reference`` and "tile" the
+    plain filter; on the card every input must be contiguous and on the
+    16-byte grid."""
     _check_ssd_inputs(V, K, mlo, mhi)
+    if design is None:
+        design = serial_design(V.shape[0])
+    _check_design("ssd_serial", design, SERIAL_DESIGNS)
+    if rescore is not None and (design != "tile" or rescore.dtype !=
+                                torch.int64 or tuple(rescore.shape) != (3,)
+                                or rescore.device != V.device):
+        raise ValueError('ssd_serial: rescore must be a (3,) int64 tensor '
+                         'on V\'s device, and the design "tile"')
     if _device_of("ssd_serial", V, K, mlo, mhi) == "cpu":
-        return ssd_serial_reference(V, K, mlo, mhi)
+        if design == "thread":
+            return ssd_serial_reference(V, K, mlo, mhi)
+        out, counts = ssd_serial_filter_reference(V, K, mlo, mhi)
+        if rescore is not None:
+            rescore += torch.tensor(counts)
+        return out
     S, H, W = V.shape
+    lib = probe_library().lib
+    if design == "tile":
+        tile_config(S, H, W, serial=True)
     out = _search_outputs(V)
+    ptrs = (V.data_ptr(), K.data_ptr(), mlo.data_ptr(), mhi.data_ptr())
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("ssd_serial", probe_library().lib.ssd_serial_launch(
-            V.data_ptr(), K.data_ptr(), mlo.data_ptr(), mhi.data_ptr(),
-            S, H, W, cols_per_thread, rows_per_block,
-            *(x.data_ptr() for x in out), stream))
+        if design == "tile":
+            status = lib.ssd_serial_tile_launch(
+                *ptrs, S, H, W, *(x.data_ptr() for x in out),
+                None if rescore is None else rescore.data_ptr(), stream)
+        else:
+            status = lib.ssd_serial_launch(
+                *ptrs, S, H, W, cols_per_thread, rows_per_block,
+                *(x.data_ptr() for x in out), stream)
+    _launch("ssd_serial", status)
     ssd_serial.launches += 1
     return out
 
@@ -177,8 +412,9 @@ ssd_serial.launches = 0
 def ssd_par_reference(V, K, mlo, mhi):
     """Plain version of the two-pass search: every window's error in the
     rsqrt form err = 2 - 2 corr rsqrt(|w|^2 + eps) rsqrt(|K|^2 + eps),
-    sums left to right, then the first window reaching the minimum and
-    its neighbours' errors (3e38 outside the windows)."""
+    sums left to right, then the first window reaching the minimum (a
+    NaN error is the minimum, as torch.argmin takes it) and its
+    neighbours' errors (3e38 outside the windows)."""
     M = V.shape[0] - 4
     w = [V[k:k + M] for k in range(5)]
     kk = K[0] * K[0]
@@ -206,23 +442,39 @@ def ssd_par_reference(V, K, mlo, mhi):
     return torch.where(ec >= _INF, -1, best).to(torch.int32), ec, ep, en
 
 
-def ssd_par(V, K, mlo, mhi):
-    """The two-pass SSD window search, its (M, 128-pixel) error slab in
-    shared memory.  Same inputs and outputs as ``ssd_search``; the
-    errors are in the rsqrt form of :func:`ssd_par_reference`.  Refuses
-    an S whose slab does not fit in a block's shared memory."""
+def ssd_par(V, K, mlo, mhi, design=PAR_DESIGNS[0]):
+    """The two-pass SSD window search.  Same inputs and outputs as
+    ``ssd_search``; the errors are in the rsqrt form of
+    :func:`ssd_par_reference`.  ``design``:
+
+    - "slab": pass 1 writes every window's error to an (M, 128-pixel)
+      slab in shared memory, pass 2 scans it; refuses (ValueError) an S
+      whose slab does not fit in a block's shared memory (S > 458);
+    - "tile": the planes of a tile of pixels resident in shared memory
+      (TMA loads on a persistent grid), the running minimum in registers
+      and the neighbours' errors recomputed from the resident samples;
+      refuses (ValueError) H * W % 4 != 0 and S > 896 (see
+      :func:`tile_config`).
+
+    On CPU tensors both run :func:`ssd_par_reference`."""
+    _check_design("ssd_par", design, PAR_DESIGNS)
     _check_ssd_inputs(V, K, mlo, mhi)
     if _device_of("ssd_par", V, K, mlo, mhi) == "cpu":
         return ssd_par_reference(V, K, mlo, mhi)
     S, H, W = V.shape
     lib = probe_library().lib
-    if lib.ssd_par_shared_bytes(S) == 0:
-        raise ValueError(f"ssd_par: the error slab of S={S} does not fit "
-                         "in a block's shared memory")
+    if design == "tile":
+        tile_config(S, H, W, serial=False)
+        launch = lib.ssd_par_tile_launch
+    else:
+        if lib.ssd_par_shared_bytes(S) == 0:
+            raise ValueError(f"ssd_par: the error slab of S={S} does not "
+                             "fit in a block's shared memory")
+        launch = lib.ssd_par_launch
     out = _search_outputs(V)
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("ssd_par", lib.ssd_par_launch(
+        _launch("ssd_par", launch(
             V.data_ptr(), K.data_ptr(), mlo.data_ptr(), mhi.data_ptr(),
             S, H, W, *(x.data_ptr() for x in out), stream))
     ssd_par.launches += 1
@@ -304,11 +556,23 @@ def probe_inputs(S, H, W, seed=0):
     return V, K, mlo, mhi
 
 
+def quartiles(times):
+    """(median, first quartile, third quartile) of a list of times."""
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return statistics.median(times), q1, q3
+
+
 def run_probes(planes=PLANES, shape=SHAPE, log=print):
     """Time every probe variant and ``torch.sum(V, 0)`` at each S on the
-    card, and the sum, the float4 floor and the default bulk-copy floor
-    again with a clean L2; returns {S: {"floor": {variant: ms}, "serial":
-    {(cols, rows): ms}, "par": ms, "search": ms, "sum": ms, "clean":
+    card, the sum, the float4 floor and the default bulk-copy floor again
+    with a clean L2, and the designs of ssd_serial ("thread" in its
+    fastest variant, "tile") and ssd_par ("slab", "tile") in turns with
+    ``cuda_times``; returns {S: {"floor": {variant: ms}, "serial":
+    {(cols, rows): ms}, "designs": {"ssd_serial thread", "ssd_serial
+    tile", "ssd_par slab", "ssd_par tile": [ms, ...]}, "rescore":
+    (windows scored exactly, pixels that scanned, pixels with more than
+    one candidate) of ssd_serial "tile",
+    "plan": its tile_config, "search": ms, "sum": ms, "clean":
     {"torch.sum", "threads", "bulk": ms}}} and logs one line per
     probe."""
     H, W = shape
@@ -319,9 +583,20 @@ def run_probes(planes=PLANES, shape=SHAPE, log=print):
         floor = {v: cuda_ms(lambda v=v: ssd_copy_floor(args[0], v))
                  for v in COPY_VARIANTS}
         total = cuda_ms(lambda: torch.sum(args[0], 0))
-        serial = {v: cuda_ms(lambda v=v: ssd_serial(*args, *v))
+        serial = {v: cuda_ms(lambda v=v: ssd_serial(*args, *v,
+                                                    design="thread"))
                   for v in SERIAL_VARIANTS}
-        par = cuda_ms(lambda: ssd_par(*args))
+        fastest = min(serial, key=serial.get)
+        designs = cuda_times({
+            "ssd_serial thread": lambda: ssd_serial(*args, *fastest,
+                                                    design="thread"),
+            "ssd_serial tile": lambda: ssd_serial(*args, design="tile"),
+            "ssd_par slab": lambda: ssd_par(*args, design="slab"),
+            "ssd_par tile": lambda: ssd_par(*args, design="tile")})
+        rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
+        ssd_serial(*args, design="tile", rescore=rescore)
+        n_exact, n_scan, n_sweep = rescore.tolist()
+        plan = tile_config(S, H, W, serial=True)
         search = cuda_ms(lambda: ssd_search(*args))
         for v, ms in floor.items():
             log(f"S={S:3d} copy floor {copy_variant_name(v)}: {ms:.4f} ms, "
@@ -339,13 +614,24 @@ def run_probes(planes=PLANES, shape=SHAPE, log=print):
                      f"copy floor {copy_variant_name(COPY_DEFAULT)}"),
                     clean.values())))
         for (cols, rows), ms in serial.items():
-            log(f"S={S:3d} serial cols={cols} rows={rows:2d}: {ms:.4f} ms, "
-                f"{gb / ms:.1f} GB/s")
-        log(f"S={S:3d} par (slab {(S - 4) * 512 / 1024:.1f} KB): "
-            f"{par:.4f} ms, {gb / par:.1f} GB/s")
+            log(f"S={S:3d} serial thread cols={cols} rows={rows:2d}: "
+                f"{ms:.4f} ms, {gb / ms:.1f} GB/s")
+        log(f"S={S:3d} in turns, 20 rounds, median (quartiles): " + ", ".join(
+            "{} {:.4f} ({:.4f}-{:.4f}) ms".format(name, *quartiles(times))
+            for name, times in designs.items())
+            + f"; serial thread is cols, rows = {fastest}, par slab "
+            f"{(S - 4) * 512 / 1024:.1f} KB a block, tile P={plan['tile']} "
+            f"x {plan['blocks_per_sm']} blocks an SM, {plan['chunks']} "
+            f"chunks of {plan['chunk_rows']} planes")
+        log(f"S={S:3d} ssd_serial tile re-scores: {n_exact / (H * W):.3f} "
+            f"exact windows a pixel (of {S - 4}), {n_scan} pixels scanned "
+            f"every window, {n_sweep} swept again for more than one "
+            "candidate")
         log(f"S={S:3d} ssd_search: {search:.4f} ms, {gb / search:.1f} GB/s, "
             f"{min(floor.values()) / search:.3f} of the best floor")
-        results[S] = dict(floor=floor, serial=serial, par=par, search=search,
+        results[S] = dict(floor=floor, serial=serial, designs=designs,
+                          rescore=(n_exact, n_scan, n_sweep), plan=plan,
+                          search=search,
                           sum=total, clean=clean)
     return results
 

@@ -20,10 +20,62 @@ from tadataka_torch.vo.semi_dense.sweep import (
 
 SSD_CASES = ["planted", "window_mask", "invalid_samples", "ties",
              "all_invalid", "ragged_rows"]
+# the cases of ssd_serial "tile"'s candidate filter (see ssd_case)
+FILTER_CASES = ["near_tie", "nan_key", "tiny_wn2"]
+
+
+def window_errors_np(V, K):
+    """(M, H, W) unmasked errors of the SSD search in numpy float32:
+    left-to-right sums of rounded products, IEEE root and division."""
+    M = V.shape[0] - 4
+    eps = np.float32(1e-16)
+    kk = K[0] * K[0]
+    corr = V[0:M] * K[0]
+    wn2 = V[0:M] * V[0:M]
+    for k in range(1, 5):
+        kk = kk + K[k] * K[k]
+        corr = corr + V[k:k + M] * K[k]
+        wn2 = wn2 + V[k:k + M] * V[k:k + M]
+    kn = np.sqrt(kk) + eps
+    return np.float32(2.0) - (np.float32(2.0) * corr) / (np.sqrt(wn2) * kn
+                                                          + eps)
+
+
+def near_tie(V, K, gen, a=2, b=9):
+    """Plant the key near window ``a`` and window ``b`` as a copy of it
+    with one sample scaled by 1 +- 2^-k, chosen per pixel so that the
+    two windows' exact errors differ by one ulp where a scale achieves it
+    (an exact tie elsewhere).  Returns where it does.  An error e = 2 - q
+    is rounded as q = 2 corr / denom is (the difference is exact), so one
+    ulp here is one ulp of q: e_a and e_b are neighbours among the
+    values the search can compute."""
+    K[:] = V[a:a + 5] + np.float32(0.05) * gen.random(K.shape,
+                                                       dtype=np.float32)
+    V[b:b + 5] = V[a:a + 5]
+    e_a = window_errors_np(V[a:a + 5], K)[0]
+    q_a = np.float32(2.0) - e_a
+    up = np.float32(2.0) - np.nextafter(q_a, np.float32(np.inf))
+    down = np.float32(2.0) - np.nextafter(q_a, np.float32(-np.inf))
+    done = np.zeros(e_a.shape, bool)
+    for k in range(24, 8, -1):
+        for j in range(5):
+            for sign in (1, -1):
+                w = V[a:a + 5].copy()
+                w[j] = w[j] * np.float32(1 + sign * 2.0 ** -k)
+                e_b = window_errors_np(w, K)[0]
+                take = ((e_b == up) | (e_b == down)) & ~done
+                V[b + j][take] = w[j][take]
+                done |= take
+    return done
 
 
 def ssd_case(case, S, seed=7):
-    """(V, K, mlo, mhi) float32 numpy inputs of one SSD search case."""
+    """(V, K, mlo, mhi) float32 numpy inputs of one SSD search case
+    (SSD_CASES, and FILTER_CASES: "near_tie", two windows whose exact
+    errors differ by one ulp on most pixels; "nan_key", NaN in K on a
+    quarter of the pixels; "tiny_wn2", rows of windows with samples
+    scaled by 1e-20, 1e-9 and 1e-6 and a window of zeros, where the
+    search's 1e-16 counts or wn2 is not normal)."""
     gen = np.random.default_rng(seed)
     H, W = (13, 37) if case == "ragged_rows" else (8, 64)
     V = gen.random((S, H, W)).astype(np.float32)
@@ -46,6 +98,17 @@ def ssd_case(case, S, seed=7):
         V[gen.random(V.shape) < 0.2] = -1.0
         mlo = gen.integers(0, M // 2, (H, W)).astype(np.float32)
         mhi = mlo + 3.0 + gen.integers(0, M // 2, (H, W)).astype(np.float32)
+    elif case == "near_tie":
+        near_tie(V, K, gen)
+    elif case == "nan_key":
+        K[:, gen.random((H, W)) < 0.25] = np.nan
+        K[2, 0, :] = np.nan           # one NaN sample in a row's keys
+    elif case == "tiny_wn2":
+        for row, scale in ((0, 1e-20), (1, 1e-9), (2, 1e-6)):
+            V[:, row] *= np.float32(scale)
+        V[3:8, 3] = 0.0               # window 3 of row 3: wn2 = 0, err 2
+        V[3:8, 4, :32] = 0.0
+        K[:, 4, :32] = 0.0            # kk = 0: the key norm is 1e-16
     return V, K, mlo, mhi
 
 
@@ -121,10 +184,11 @@ def cuda_or_skip():
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_probe_kernels_against_plain(case, S):
     """On the card: the copy floor bit-equal to its plain version in
-    every variant; every ssd_serial variant bit-equal to ssd_search and
-    to the plain version; ssd_par's best equal to its plain version's on
-    >= 0.9999 of pixels with the errors within 1e-6 where best is equal
-    (rsqrtf may differ from torch.rsqrt in the last bit); one launch
+    every variant; every ssd_serial "thread" variant bit-equal to
+    ssd_search and to the plain version; ssd_par "slab"'s best equal to
+    its plain version's on >= 0.9999 of pixels with the errors within
+    1e-6 where best is equal (rsqrtf may differ from torch.rsqrt in the
+    last bit); one launch
     counted per call.  At S = 128 ssd_par's slab (63.5 KB) takes the
     launch path past the 48 KB default of dynamic shared memory."""
     cuda_or_skip()
@@ -141,12 +205,12 @@ def test_probe_kernels_against_plain(case, S):
         assert torch.equal(out, probes.ssd_copy_floor_reference(args[0]))
     search = ssd_search(*args)
     for variant in probes.SERIAL_VARIANTS:
-        out = probes.ssd_serial(*args, *variant)
+        out = probes.ssd_serial(*args, *variant, design="thread")
         torch.cuda.synchronize()
         for a, b, c in zip(out, search, probes.ssd_serial_reference(*args)):
             assert torch.equal(a, b) and torch.equal(a, c)
     before = probes.ssd_par.launches
-    out = probes.ssd_par(*args)
+    out = probes.ssd_par(*args, design="slab")
     ref = probes.ssd_par_reference(*args)
     torch.cuda.synchronize()
     assert probes.ssd_par.launches == before + 1
@@ -158,10 +222,10 @@ def test_probe_kernels_against_plain(case, S):
 
 @pytest.mark.cuda
 def test_probe_kernels_refuse():
-    """On the card: ssd_par refuses an S whose error slab exceeds a
-    block's shared memory, the copy floor's float4 variant a W it cannot
-    tile and its bulk-copy variants an H * W that is not a multiple of 4
-    (the copies need 16-byte aligned planes)."""
+    """On the card: ssd_par "slab" refuses an S whose error slab exceeds
+    a block's shared memory, the copy floor's float4 variant a W it
+    cannot tile and its bulk-copy variants an H * W that is not a
+    multiple of 4 (the copies need 16-byte aligned planes)."""
     cuda_or_skip()
     from tadataka_torch.probes import exp_ssd as probes
     H, W = 4, 32
@@ -170,7 +234,7 @@ def test_probe_kernels_refuse():
     mlo = torch.zeros((H, W), device="cuda")
     mhi = torch.full((H, W), 455.0, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
-        probes.ssd_par(V, K, mlo, mhi)
+        probes.ssd_par(V, K, mlo, mhi, design="slab")
     with pytest.raises(RuntimeError, match="launch failed"):
         probes.ssd_copy_floor(V[:, :, :30].contiguous(), ("threads", 4, 8))
     odd = torch.rand((8, 3, 31), device="cuda")
@@ -180,6 +244,133 @@ def test_probe_kernels_refuse():
                 probes.ssd_copy_floor(odd, variant)
     assert torch.equal(probes.ssd_copy_floor(odd, ("threads", 1, 8)),
                        probes.ssd_copy_floor_reference(odd))
+
+
+def same_or_both_nan(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 48, 128, 256])
+@pytest.mark.parametrize("case", SSD_CASES + FILTER_CASES)
+def test_tile_designs_against_plain(case, S):
+    """On the card: ssd_serial "tile" bit-equal to both designs of
+    ssd_search, to the plain version and to its plain filter; ssd_par
+    "tile" within today's bounds of its plain version (best equal on >=
+    0.9999 of pixels, errors within 1e-6 where best is equal, NaN in the
+    same places), "slab" too but on the pixels whose key is NaN (its
+    fminf skips a NaN error); one launch counted per call in every
+    design.
+
+    NaN errors ("nan_key") are placed differently by each form: the
+    plain version's argmin takes the first NaN as the minimum, the
+    serial scans never take one, and a pixel with no window keeps en =
+    window 0's error (NaN here) in ssd_search "thread" (as in the Pallas
+    kernel) but 3e38 in "ring".  There ssd_serial is held bit-equal to
+    "thread" everywhere, to "ring" but on en of the pixels with no
+    window, and to the plain version on the pixels whose key is
+    finite."""
+    cuda_or_skip()
+    from tadataka_torch.probes import exp_ssd as probes
+    arrays = ssd_case(case, S)
+    if case == "ragged_rows":       # 13 x 37: "tile" needs H * W % 4 == 0
+        arrays = tuple(a[..., :36] for a in arrays)
+    args = tensors(arrays, device="cuda")
+    thread = ssd_search(*args, design="thread")
+    ring = ssd_search(*args, design="ring")
+    plain = probes.ssd_serial_reference(*args)
+    filtered, _ = probes.ssd_serial_filter_reference(*args)
+    finite = ~torch.isnan(args[1]).any(0)
+    for design in probes.SERIAL_DESIGNS:
+        before = probes.ssd_serial.launches
+        out = probes.ssd_serial(*args, design=design)
+        torch.cuda.synchronize()
+        assert probes.ssd_serial.launches == before + 1
+        found = out[0] >= 0
+        for i, (a, b, r, c, d) in enumerate(zip(out, thread, ring, plain,
+                                                filtered)):
+            assert same_or_both_nan(a, b), (design, case, S)
+            assert same_or_both_nan(a, d), (design, case, S)
+            if case == "nan_key":
+                keep = found if i == 3 else torch.ones_like(found)
+                assert torch.equal(a[keep], r[keep])
+                assert torch.equal(a[finite], c[finite])
+            else:
+                assert torch.equal(a, r) and torch.equal(a, c)
+    ref = probes.ssd_par_reference(*args)
+    for design in probes.PAR_DESIGNS:
+        before = probes.ssd_par.launches
+        out = probes.ssd_par(*args, design=design)
+        torch.cuda.synchronize()
+        assert probes.ssd_par.launches == before + 1
+        # "slab" takes its minimum with fminf, which skips a NaN error
+        held = finite if design == "slab" else torch.ones_like(finite)
+        same = (out[0] == ref[0])[held]
+        assert same.float().mean().item() >= 0.9999, (design, case, S)
+        for a, b in zip(out[1:], ref[1:]):
+            a, b = a[held], b[held]
+            assert torch.equal(a.isnan()[same], b.isnan()[same])
+            d = torch.where(same & ~a.isnan(), (a - b).abs(), 0.0)
+            assert d.max().item() <= 1e-6, (design, case, S)
+    if case == "nan_key":
+        assert torch.isnan(ref[1]).any()
+
+
+@pytest.mark.cuda
+def test_tile_rescore_counts():
+    """On the card: ssd_serial "tile" adds to ``rescore`` the windows it
+    scored exactly, the pixels that scanned every window and the pixels
+    with more than one candidate, as its plain filter counts them: two
+    or three windows a pixel on the planted case, a second sweep on
+    every pixel of the tied case, a scan on every pixel whose key is
+    NaN."""
+    cuda_or_skip()
+    from tadataka_torch.probes import exp_ssd as probes
+    for case in ("planted", "ties", "nan_key"):
+        args = tensors(ssd_case(case, 48), device="cuda")
+        rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
+        probes.ssd_serial(*args, design="tile", rescore=rescore)
+        probes.ssd_serial(*args, design="tile", rescore=rescore)
+        n_exact, n_scan, n_sweep = rescore.tolist()
+        _, plain = probes.ssd_serial_filter_reference(*args)
+        assert (n_scan, n_sweep) == (2 * plain[1], 2 * plain[2]), case
+        if case == "planted":
+            assert 2 * 2 * 8 * 64 <= n_exact <= 2 * 3 * 8 * 64
+            assert n_scan == n_sweep == 0
+        if case == "ties":
+            assert n_sweep == 2 * 8 * 64
+
+
+@pytest.mark.cuda
+def test_tile_designs_refuse():
+    """On the card: "tile" of both probes refuses H * W % 4 != 0 (a TMA
+    box reads whole 16-byte vectors), an S whose two tiles do not fit in
+    a block's shared memory even at 32 pixels a tile (S = 1000; 896
+    fits), and a tensor off the 16-byte grid; nothing is launched."""
+    cuda_or_skip()
+    from tadataka_torch.probes import exp_ssd as probes
+    counts = [probes.ssd_serial.launches, probes.ssd_par.launches]
+    odd = tensors(ssd_case("planted", 16), device="cuda")
+    odd = [x[..., :7, :63].contiguous() for x in odd]       # 7 x 63
+    H, W = 4, 32
+    big = [torch.rand((1000, H, W), device="cuda"),
+           torch.rand((5, H, W), device="cuda"),
+           torch.zeros((H, W), device="cuda"),
+           torch.full((H, W), 995.0, device="cuda")]
+    shifted = tensors(ssd_case("planted", 16), device="cuda")
+    V = torch.empty(shifted[0].numel() + 1, device="cuda")[1:]
+    V.copy_(shifted[0].reshape(-1))
+    shifted[0] = V.view(shifted[0].shape)
+    for fn in (probes.ssd_serial, probes.ssd_par):
+        with pytest.raises(ValueError, match="H \\* W % 4"):
+            fn(*odd, design="tile")
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(*big, design="tile")
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(*shifted, design="tile")
+    assert counts == [probes.ssd_serial.launches, probes.ssd_par.launches]
+    probes.tile_config(896, H, W, serial=True)
 
 
 def test_copy_floor_variants_on_cpu():
