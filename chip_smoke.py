@@ -293,16 +293,27 @@ def search_work(V, K, mlo, mhi, tile):
                 flops=SSD_FLOPS_PER_WINDOW * windows)
 
 
+def same(a, b):
+    """Equal, NaN in the same places (NaN payloads aside)."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.where(a.isnan(), 0, a), torch.where(b.isnan(), 0, b))
+
+
+def all_same(out, ref):
+    return all(same(a, b) for a, b in zip(out, ref))
+
+
 def check_designs(name, args):
     """Every design of ssd_search bit-equal to the plain version on
-    ``args``; returns the plain version's outputs."""
+    ``args``, NaN in the same places; returns the plain version's
+    outputs."""
     from tadataka_torch.vo.semi_dense.sweep import (
         SSD_DESIGNS, ssd_search, ssd_search_reference)
     ref = ssd_search_reference(*args)
     for design in SSD_DESIGNS:
         out = ssd_search(*args, design=design)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+        if not all_same(out, ref):
             raise AssertionError(f"ssd_search ({design}) differs from its "
                                  f"plain version on {name}")
     return ref
@@ -349,8 +360,11 @@ def phase_kernel_vs_plain():
     the same tensors, on random stacks up to the rect plan's 256 planes,
     at odd sizes (H*W % 4 of 3 and 1, where "ring" runs the thread
     kernel) and on rect-shaped stacks, each timed beside the bound at its
-    inputs; the ring kernel's SASS must hold its bulk copies (UBLKCP)."""
-    from tadataka_torch.probes.ssd_ring import rect_inputs, ssd_inputs
+    inputs; then on stacks whose window errors are NaN (``nan_inputs``,
+    NaN in the same places; not timed); the ring kernel's SASS must hold
+    its bulk copies (UBLKCP)."""
+    from tadataka_torch.probes.ssd_ring import (
+        nan_inputs, rect_inputs, ssd_inputs)
     from tadataka_torch.vo.semi_dense.sweep import ring_config, ssd_library
     results = {}
     cases = [("random", S, *VGA) for S in (32, 48, 128, 256)] + [
@@ -368,6 +382,14 @@ def phase_kernel_vs_plain():
             "of pixels match")
         results[(kind, S, H, W)] = time_search("kernel", kind, args)
     log_clocks("kernel", "after")
+    for S, H, W in ((16, *VGA), (48, *VGA), (256, *VGA), (48, 479, 641)):
+        ref = check_designs(f"nan S={S} {H}x{W}",
+                            nan_inputs(S, H, W, seed=S + H))
+        log("kernel", f"ssd_search nan S={S} {H}x{W}: ring and thread "
+            "bit-equal to plain, NaN in the same places (NaN ec on "
+            f"{ref[1].isnan().sum().item()}, en on "
+            f"{ref[3].isnan().sum().item()} pixels, no best on "
+            f"{(ref[0] < 0).sum().item()})")
     lines = kernel_sass(ssd_library(), "ssd_search_ring_kernel")
     counts = {op: sum(op in line for line in lines)
               for op in ("UBLKCP", "UTMALDG", "FFMA", "MUFU")}
@@ -386,17 +408,20 @@ def phase_probes():
     case: the copy floor in every variant (the thread designs and the
     bulk-copy ring), every serial "thread" variant and the serial "tile"
     design bit-equal to ssd_search and to the plain version, the
-    two-pass search in both designs within compare_search's bounds of
-    its plain version and of the serial search, with the re-score counts
-    of serial "tile".  The bulk-copy floor's best time at each S is
-    printed beside the thread variants' and torch.sum's, each design of
-    the two searches beside the bound, its kernel's SASS must hold its
+    two-pass search in both designs bit-equal to its plain version and
+    within compare_search's bounds of the serial search (another error
+    form), with the re-score counts of serial "tile"; and the same on
+    ``nan_inputs``, NaN in the same places (each form by its own Pallas
+    kernel's NaN rule, so the two searches are not compared there).
+    The bulk-copy floor's best time at each S is printed beside the
+    thread variants' and torch.sum's, each design of the two searches
+    beside the bound, its kernel's SASS must hold its
     bulk copies (UBLKCP; the "tile" kernels also UTMALDG), and the
     instructions a window of each search kernel's window loop are
     printed.  Returns the kernels' JSON entries (the searches in their
     default design) and the measured floor in GB/s."""
     from tadataka_torch.probes import exp_ssd as probes
-    from tadataka_torch.probes.ssd_ring import ssd_inputs
+    from tadataka_torch.probes.ssd_ring import nan_inputs, ssd_inputs
     from tadataka_torch.vo.semi_dense.sweep import ssd_search
     wrappers = (probes.ssd_copy_floor, probes.ssd_serial, probes.ssd_par)
     for fn in wrappers:
@@ -411,45 +436,53 @@ def phase_probes():
     errs = dict.fromkeys(launches, 0.0)
     for S in probes.PLANES:
         for case, args in (("exp_ssd inputs", probes.probe_inputs(S, *VGA)),
-                           ("hard case", ssd_inputs(S, *VGA, seed=S))):
+                           ("hard case", ssd_inputs(S, *VGA, seed=S)),
+                           ("nan case", nan_inputs(S, *VGA, seed=S))):
             V = args[0]
             ref = probes.ssd_copy_floor_reference(V)
             for variant in probes.COPY_VARIANTS:
                 out = probes.ssd_copy_floor(V, variant)
                 torch.cuda.synchronize()
-                errs["ssd_copy_floor"] = max(errs["ssd_copy_floor"],
-                                             (out - ref).abs().max().item())
-                assert torch.equal(out, ref), (S, case, variant)
+                if case != "nan case":
+                    errs["ssd_copy_floor"] = max(
+                        errs["ssd_copy_floor"], (out - ref).abs().max().item())
+                assert same(out, ref), (S, case, variant)
             search = ssd_search(*args)
             plain = probes.ssd_serial_reference(*args)
             for variant in probes.SERIAL_VARIANTS:
                 out = probes.ssd_serial(*args, *variant, design="thread")
                 torch.cuda.synchronize()
-                assert all(torch.equal(a, b) and torch.equal(a, c)
-                           for a, b, c in zip(out, search, plain)), \
+                assert all_same(out, search) and all_same(out, plain), \
                     (S, case, variant)
             rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
             out = probes.ssd_serial(*args, design="tile", rescore=rescore)
             torch.cuda.synchronize()
-            assert all(torch.equal(a, b) and torch.equal(a, c)
-                       for a, b, c in zip(out, search, plain)), \
+            assert all_same(out, search) and all_same(out, plain), \
                 (S, case, "tile")
             n_exact, n_scan, n_sweep = rescore.tolist()
             par_ref = probes.ssd_par_reference(*args)
             lines = []
             for design in probes.PAR_DESIGNS:
                 par = probes.ssd_par(*args, design=design)
-                par_eq, par_share, par_err = compare_search(
-                    f"ssd_par {design} vs plain, {case}, S={S}", par, par_ref)
-                errs["ssd_par"] = max(errs["ssd_par"], par_err)
-                vs_eq, vs_share, vs_err = compare_search(
-                    f"ssd_par {design} vs ssd_serial, {case}, S={S}", par,
-                    search)
-                lines.append(
-                    f"ssd_par {design} {'bit-equal' if par_eq else 'within bounds'}"
-                    f" to plain (best equal {par_share:.6f}, max |d| "
-                    f"{par_err}), vs ssd_serial: best equal {vs_share:.6f}, "
-                    f"max |d| {vs_err}")
+                torch.cuda.synchronize()
+                if case != "nan case":
+                    errs["ssd_par"] = max(errs["ssd_par"], max(
+                        (a.double() - b.double()).abs().max().item()
+                        for a, b in zip(par[1:], par_ref[1:])))
+                if not all_same(par, par_ref):
+                    raise AssertionError(f"ssd_par {design} differs from its "
+                                         f"plain version, {case}, S={S}")
+                line = f"ssd_par {design} bit-equal to plain"
+                if case != "nan case":
+                    _, vs_share, vs_err = compare_search(
+                        f"ssd_par {design} vs ssd_serial, {case}, S={S}",
+                        par, search)
+                    line += (f", vs ssd_serial: best equal {vs_share:.6f}, "
+                             f"max |d| {vs_err}")
+                else:
+                    line += (f" (bm = M on {(par[0] == S - 4).sum().item()} "
+                             "pixels)")
+                lines.append(line)
             log("probes", f"{case}, S={S} 480x640: copy floor bit-equal to "
                 f"plain in {len(probes.COPY_VARIANTS)} variants; ssd_serial "
                 "bit-equal to ssd_search and to plain in "
@@ -1207,10 +1240,16 @@ def phase_gather(floor_gbs):
     (NaN in the same places) on the scripts' inputs there and here on
     the hard case (planted negative, out-of-range and edge indices, 479 x
     641 and 480 x 640, 20 index rows of H*W), take_along_axis0,
-    multi_warp and flat_take_rows in each of their designs; then each
+    multi_warp and flat_take_rows in each of their designs,
+    take_along_axis1 and flat_take and their first kernels (flat_take
+    runs its first kernel at 479 x 641, whose H*W % 4 is not 0, and
+    "band" takes a tail of S*N % 4 = 1 at 480 x 640); then each
     kernel's time beside its plain version's, its library call's, its
     bound and the card's launch floor (an empty kernel), the designs of
-    take_along_axis0 and multi_warp timed in turns, and flat_take_rows'
+    take_along_axis0 and multi_warp and take_along_axis1 and flat_take
+    beside their first kernels timed in turns (the last two with their
+    library calls), the SASS of the new kernels (loads, and
+    instructions a slot a band of "band"), and flat_take_rows'
     beside its first design's time, its other design's and its time on
     identity indices.  Returns the kernels' JSON entries (each kernel's
     default design)."""
@@ -1242,12 +1281,17 @@ def phase_gather(floor_gbs):
                for d in g.TAKE_ALONG_AXIS0_DESIGNS},
             "take_along_axis1": (g.take_along_axis1(img, cols),
                                  g.take_along_axis_reference(img, cols, 1)),
+            "take_along_axis1/thread": (
+                g.first_kernel(g.take_along_axis1, img, cols),
+                g.take_along_axis_reference(img, cols, 1)),
             **{f"multi_warp/{d}": (
                 g.multi_warp(img, rows, cols, 16, design=d),
                 g.multi_warp_reference(img, rows, cols, 16))
                for d in g.MULTI_WARP_DESIGNS},
             "flat_take": (g.flat_take(fimg, idx),
                           g.flat_take_reference(fimg, idx)),
+            "flat_take/thread": (g.first_kernel(g.flat_take, fimg, idx),
+                                 g.flat_take_reference(fimg, idx)),
             **{f"flat_take_rows/{d}": (
                 g.flat_take_rows(fimg, idx, design=d),
                 g.flat_take_rows_reference(fimg, idx))
@@ -1257,10 +1301,14 @@ def phase_gather(floor_gbs):
         for name, (out, ref) in checks.items():
             assert g.same_bits(out, ref), (name, shape)
             nans[name] = f"{torch.isnan(ref).float().mean().item():.3f}"
+        tail = idx[:7, :1003].contiguous()    # S*N % 4 == 1
+        assert g.same_bits(g.flat_take(fimg, tail),
+                           g.flat_take_reference(fimg, tail)), shape
         log("gather", f"hard case {shape[0]}x{shape[1]} (flat: 20 x "
-            f"{shape[0] * shape[1]} indices): all five bit-equal to their "
-            "plain versions in every design, NaN in the same places (NaN "
-            f"share {nans})")
+            f"{shape[0] * shape[1]} indices, and 7 x 1003 for flat_take; "
+            f"flat_take runs {'thread' if fimg.numel() % 4 else 'band'}): "
+            "all five bit-equal to their plain versions in every design, "
+            f"NaN in the same places (NaN share {nans})")
 
     img, rows, cols = dynamic_gather.probe_inputs()
     fimg, idx = flat_gather.probe_inputs()
@@ -1285,7 +1333,9 @@ def phase_gather(floor_gbs):
         assert ratio > 3.0, (f"multi_warp ({design}): the gathers were "
                              "hoisted out of its loop")
     for kernel in ("multi_warp_kernel", "multi_warp_strip_kernel",
-                   "take_axis0_kernel", "take_axis0_strip_kernel"):
+                   "take_axis0_kernel", "take_axis0_strip_kernel",
+                   "take_axis1_kernel", "take_axis1_row_kernel",
+                   "flat_take_kernel", "flat_take_band_kernel"):
         for header, body in sass_sections(built, kernel):
             form = ("" if "ILb" not in header else " (16-byte staging)"
                     if "ILb1" in header else " (plain-load staging)")
@@ -1303,22 +1353,40 @@ def phase_gather(floor_gbs):
     log("gather", "with a clean L2 (flushed by a read, no dirty lines to "
         "write back): " + ", ".join(f"{name} {ms * 1e3:.2f} us"
                                     for name, ms in clean.items()))
+    body = sass_sections(built, "flat_take_band_kernel")[0][1]
+    at = [i for i, line in enumerate(body) if "LDS" in line]
+    log("gather", f"SASS of flat_take_band_kernel: {len(at)} shared loads "
+        f"(LDS), {(at[-1] - at[0] + 1) / len(at):.2f} instructions a slot a "
+        "band between the first and the last (the unrolled slot loop), "
+        f"{sum('UBLKCP' in line for line in body)} bulk copies (UBLKCP)")
     plane = VGA[0] * VGA[1] * 4
     floor = dyn["launch_floor"]
-    for name in ("take_along_axis0", "multi_warp"):
-        n_bytes = (3 if name == "take_along_axis0" else 4) * plane
+    designs = {"take_along_axis0": [f"take_along_axis0/{d}" for d in
+                                    g.TAKE_ALONG_AXIS0_DESIGNS],
+               "take_along_axis1": ["take_along_axis1",
+                                    "take_along_axis1/thread"],
+               "multi_warp": [f"multi_warp/{d}" for d in
+                              g.MULTI_WARP_DESIGNS]}
+    library = {"take_along_axis0": "gather0", "take_along_axis1": "gather1"}
+    for name in ("take_along_axis0", "take_along_axis1", "multi_warp"):
+        n_bytes = (4 if name == "multi_warp" else 3) * plane
         bound_ms = bound(n_bytes)[0]
-        log("gather", f"{name} in turns ({len(g.MULTI_WARP_DESIGNS)} designs): "
-            + ", ".join(
-                f"{d} {dyn[name + '/' + d]['ms'] * 1e3:.2f} us (quartiles "
-                + " - ".join(f"{q * 1e3:.2f}"
-                             for q in dyn[name + "/" + d]["quartiles"]) + ")"
-                for d in g.MULTI_WARP_DESIGNS)
+        log("gather", f"{name} in turns: " + ", ".join(
+                f"{d} {dyn[d]['ms'] * 1e3:.2f} us (quartiles "
+                + " - ".join(f"{q * 1e3:.2f}" for q in dyn[d]["quartiles"])
+                + ")" for d in designs[name])
             + f"; plain {plain[name] * 1e3:.2f} us, library "
-            + (f"{dyn['gather0'] * 1e3:.2f} us (torch.gather)"
-               if name == "take_along_axis0" else "none")
+            + (f"{dyn[library[name]] * 1e3:.2f} us (torch.gather)"
+               if name in library else "none")
             + f", bound {bound_ms * 1e3:.2f} us, launch floor (empty "
             f"kernel) {floor * 1e3:.2f} us")
+    flat_bytes = plane + 2 * S * N * 4
+    log("gather", "flat_take in turns: " + ", ".join(
+        f"{d} {flat[d]['ms']:.4f} ms (quartiles "
+        + " - ".join(f"{q:.4f}" for q in flat[d]["quartiles"]) + ")"
+        for d in ("flat_take", "flat_take/thread"))
+        + f", torch.take {flat['take']:.4f} ms; plain "
+        f"{plain['flat_take']:.4f} ms, bound {bound(flat_bytes)[0]:.4f} ms")
     rows_ms = timed["flat_take_rows"]["ms"]
     log("gather", f"flat_take_rows ({g.FLAT_TAKE_ROWS_DEFAULT}): "
         f"{rows_ms:.4f} ms (first design: {FIRST_FLAT_TAKE_ROWS_MS} ms) "

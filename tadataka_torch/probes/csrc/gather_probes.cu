@@ -66,6 +66,19 @@
 //   band of all H rows).
 //   The launch floor of the card (an empty kernel, about 5 us between
 //   CUDA events) lies above take_along_axis0's byte bound.
+// - take_along_axis1 is row-local (out[i, j] = img[i, idx[i, j]]).  Two
+//   kernels:
+//   * "thread" (the first): one thread an element; each warp's random
+//     column reads land in L1 and L2 sector by sector.
+//   * "row" (7.5% faster at 480x640, PERF.md): a block owns a band of
+//     whole rows (as many bands as make two blocks an SM: 2 rows, 5 KB,
+//     at 480x640 on 132 SMs), stages them in shared memory (16-byte cp.async where W % 4 == 0, plain
+//     loads otherwise), reads idx straight from device memory as int4
+//     with an evict-first hint, the first loads issued under the
+//     staging, gathers from shared memory and writes float4 with
+//     streaming stores.  A row past 227 KB (W > 58112) runs "thread".
+//   Bound: 3.69 MB at 480x640, 1.10 us at 3.35 TB/s, below the launch
+//   floor.
 // - flat_take_rows: every index row gathers from the same image, so the
 //   gather is elementwise over the S*N indices taken as one flat array,
 //   and no row needs its own 16-byte head or tail (S*N % 4 elements are
@@ -85,9 +98,36 @@
 //     clusters as fit walks the index chunks.  It is slower than
 //     "stream" on the card and stays as the probe of the SM-to-SM
 //     network's rate for random 4-byte reads.
+// - flat_take (take(mode="clip")) is the same gather, clamped.  Two
+//   kernels:
+//   * "thread" (the first): one thread an element, every gather a random
+//     32-byte L2 sector: 19.7M sectors at 64 x 307200, about 1.2e11 a
+//     second.  It serves HW % 4 != 0, which "band" cannot copy.
+//   * "band" takes the gathers off L2.  The index chunks, not the image,
+//     sit in the SMs: a persistent block of 1024 threads (a producer
+//     warp and 31 consumer warps) holds 32 indices a consumer thread in
+//     registers (31744, 124 KB), clipped once, and the image streams
+//     past them in bands (113 KB, the largest of which two fit in a
+//     block; 11 at 480x640) through a ring of two stages in shared
+//     memory, every gather a predicated shared-memory load.  More,
+//     smaller stages never paid for the extra bands (PERF.md).  Two
+//     blocks form a cluster; each copies half of every band with one
+//     bulk copy multicast to both (the only SM-to-SM traffic, in bulk),
+//     so L2 serves each band once a cluster.  Clusters of 4 blocks (the
+//     first form) left SMs idle, as the card's GPCs do not split into
+//     fours, and took an extra round at the probe's shape.  What holds
+//     it (PERF.md): every SM must take in the whole image once a
+//     round, 1.2 MB for its 31744 indices, 38.7 bytes an index against
+//     the 32-byte sector of a random gather, and the bulk copies into an
+//     SM run no faster than the random sectors did, whatever the band
+//     size, the stage count, the multicast or the pieces a band is cut
+//     into; the slot tests run under the copies.  So "band" only draws
+//     even with "thread" (1.6% ahead at the probe's shape).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 namespace {
 
@@ -103,6 +143,18 @@ constexpr int kStrip = 32;            // columns of a "strip" block
 constexpr int kStripThreads = 256;    // threads of a multi_warp block
 constexpr int kStripRows = kStripThreads / kStrip;   // rows a pass
 constexpr int kMultiBand = 32;        // rows of a multi_warp block's band
+constexpr int kRowChunks = 4;         // int4 index loads a "row" thread
+                                      // issues before the staging wait
+constexpr int kBandCluster = 2;       // blocks of a "band" cluster
+constexpr int kBandThreads = 1024;    // a producer warp, then consumers
+constexpr int kBandConsumers = kBandThreads - 32;
+constexpr int kBandSlots = 32;        // indices a consumer thread holds
+constexpr int kBandChunk = kBandConsumers * kBandSlots;
+constexpr int kBandStages = 2;        // stages of the ring
+constexpr int kBandHeader = 256;      // full, consumed, empty barriers
+// floats a band: the most of which kBandStages fit in a block (113 KB)
+constexpr int kBandFloats =
+    (kMaxSharedBytes - kBandHeader) / (4 * kBandStages) / 4 * 4;
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float nan_value() {
@@ -265,6 +317,68 @@ __global__ void take_axis1_kernel(const float* __restrict__ img,
   const size_t row = p / W * W;
   int c = idx[p];
   out[p] = wrap_index(c, W) ? __ldg(img + row + c) : nan_value();
+}
+
+// row[wrap(c)] of a row of W, or NaN; an invalid c reads element 0, so
+// no index outside the row reaches shared memory.
+__device__ __forceinline__ float row_take(const float* row, int c, int W) {
+  const bool ok = wrap_index(c, W);
+  const float v = row[ok ? c : 0];
+  return ok ? v : nan_value();
+}
+
+// ------------------------------------------------ take_along_axis1, "row"
+
+// Shared memory: img[band of rows] (n rows of W).  The gather is
+// row-local, so a block stages its band of rows once and gathers every
+// element of the band from shared memory; idx is read once, straight
+// from device memory as int4 (its own row's chunk: W % 4 == 0 keeps a
+// chunk inside a row), and out is written as float4 with streaming
+// stores.  The index loads of a thread's first kRowChunks chunks are
+// issued before the staging is waited on, so they overlap it.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+take_axis1_row_kernel(const float* __restrict__ img,
+                      const int* __restrict__ idx, int H, int W, int band,
+                      float* __restrict__ out) {
+  extern __shared__ __align__(16) float band_rows[];
+  const int i0 = blockIdx.x * band;
+  const int n = min(band, H - i0);
+  const size_t base = static_cast<size_t>(i0) * W;
+  const int count = n * W;
+  if (kVec) {
+    for (int q = threadIdx.x; q < count / 4; q += kThreads)
+      cp_async16(band_rows + 4 * q, img + base + 4 * q);
+    const int4* idx4 = reinterpret_cast<const int4*>(idx + base);
+    float4* out4 = reinterpret_cast<float4*>(out + base);
+    for (int q0 = 0; q0 < count / 4; q0 += kRowChunks * kThreads) {
+      int4 c[kRowChunks];
+#pragma unroll
+      for (int k = 0; k < kRowChunks; ++k) {
+        const int q = q0 + k * kThreads + threadIdx.x;
+        c[k] = q < count / 4 ? __ldcs(idx4 + q) : make_int4(0, 0, 0, 0);
+      }
+      if (q0 == 0) staged();   // the same q0 in every thread
+#pragma unroll
+      for (int k = 0; k < kRowChunks; ++k) {
+        const int q = q0 + k * kThreads + threadIdx.x;
+        if (q < count / 4) {
+          const float* row = band_rows + (4 * q) / W * W;
+          __stcs(out4 + q, make_float4(row_take(row, c[k].x, W),
+                                       row_take(row, c[k].y, W),
+                                       row_take(row, c[k].z, W),
+                                       row_take(row, c[k].w, W)));
+        }
+      }
+    }
+  } else {
+    for (int q = threadIdx.x; q < count; q += kThreads)
+      band_rows[q] = img[base + q];
+    staged();
+    for (int q = threadIdx.x; q < count; q += kThreads)
+      out[base + q] =
+          row_take(band_rows + q / W * W, __ldcs(idx + base + q), W);
+  }
 }
 
 __global__ void multi_warp_kernel(const float* __restrict__ img,
@@ -436,6 +550,260 @@ flat_take_rows_cluster_kernel(const float* __restrict__ flat, int HW,
   cluster_sync();          // no block leaves while its slice may be read
 }
 
+// ----------------------------------------------------- flat_take, "band"
+
+// Clusters of kBandCluster blocks, one block an SM, on a persistent grid.
+// Every round, each block of a cluster holds one chunk of kBandChunk
+// indices in registers (kBandSlots a consumer thread: int4 loads j = 0
+// .. 7 at int4 j * kBandConsumers + t of the chunk, clipped into [0, HW)
+// and kept as byte offsets), and the cluster sweeps the image band by
+// band through a ring of kBandStages stages in every block's shared
+// memory.  Warp 0
+// produces: lane 0 copies the block's share of each band (1 / kBandCluster
+// of it) with one bulk copy multicast to every block of the cluster
+// (cp.async.bulk ... .multicast::cluster), so L2 serves a band once a
+// cluster and no load of a gather crosses SMs; each block's full
+// barrier expects the whole band's bytes.  The other warps consume: at
+// each band a slot whose offset falls in it reads its value from shared
+// memory (a slot that does not reads the stage's first word and keeps
+// its register); the value takes the slot's register and a bit of
+// ``served`` marks it.  After the last band of a round the thread writes
+// its chunk's values as float4 with streaming stores, in the order of
+// the loads.  A stage is refilled only after every block of the cluster
+// has read it: each consumer warp arrives on the block's consumed
+// barrier, and producer lane 1 + c, as soon as that completes, arrives
+// on the stage's empty barrier in block c (mapa + mbarrier.arrive.release
+// .cluster), on which lane 0 waits before it copies.  So the copies run
+// ahead of the reads by the ring's depth, and no consumer waits on
+// another SM.  The rounds deal the chunks kBandCluster at a time (chunk
+// kBandCluster g + r of group g), so every block of a cluster sweeps
+// the same bands; a block past the last chunk sweeps with no slot.
+__device__ __forceinline__ void cluster_arrive(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n"
+      " mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}"
+      :: "r"(bar), "r"(rank) : "memory");
+}
+
+__device__ __forceinline__ void wait_parity_cluster(uint32_t bar,
+                                                    uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, "
+      "[%0], %1;\n"
+      " @!done bra WAIT;\n}" :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT;\n}" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// Copy ``bytes`` (a multiple of 16) from ``src`` to shared ``stage`` in
+// every block of the cluster, completing on ``bar`` in each.
+__device__ __forceinline__ void multicast_copy(uint32_t stage,
+                                               const float* src,
+                                               uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;"
+      :: "r"(stage), "l"(src), "r"(bytes), "r"(bar),
+         "h"(static_cast<uint16_t>((1u << kBandCluster) - 1))
+      : "memory");
+}
+
+struct BandPlan {
+  int HW;           // image floats
+  int band;         // floats a band (a multiple of 4)
+  int n_bands;
+  size_t n;         // indices
+  int n_groups;     // groups of kBandCluster chunks
+  int n_clusters;
+};
+
+// Item ``item`` of a block (round k, band b is item k * n_bands + b, in
+// stage item % kBandStages): expect the band's bytes on the stage's full
+// barrier and copy the block's share of the band to every block of the
+// cluster.
+__device__ __forceinline__ void issue_band(const float* flat,
+                                           const BandPlan& p, int item,
+                                           uint32_t rank, uint32_t full0,
+                                           uint32_t ring) {
+  const int b = item % p.n_bands;
+  const int st = item % kBandStages;
+  const int begin = b * p.band;
+  const int len = min(p.band, p.HW - begin);
+  const int share = (len / 4 + kBandCluster - 1) / kBandCluster * 4;
+  const int q0 = min(len, static_cast<int>(rank) * share);
+  const int q1 = min(len, q0 + share);
+  const uint32_t bar = full0 + 8 * st;
+  const uint32_t stage = ring + 4u * st * p.band;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(4 * len) : "memory");
+  if (q1 > q0)
+    multicast_copy(stage + 4u * q0, flat + begin + q0, 4u * (q1 - q0), bar);
+}
+
+__global__ void __cluster_dims__(kBandCluster, 1, 1)
+__launch_bounds__(kBandThreads, 1)
+flat_take_band_kernel(const float* __restrict__ flat,
+                      const int* __restrict__ idx, BandPlan p,
+                      float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t full0 = shared_addr(smem);
+  const uint32_t consumed0 = full0 + 8 * kBandStages;
+  const uint32_t empty0 = consumed0 + 8 * kBandStages;
+  const uint32_t ring = full0 + kBandHeader;
+  const uint32_t rank = cluster_rank();
+  const int cluster = static_cast<int>(blockIdx.x) / kBandCluster;
+  const int rounds = cluster < p.n_groups
+                         ? (p.n_groups - cluster + p.n_clusters - 1) /
+                               p.n_clusters
+                         : 0;
+  const int items = rounds * p.n_bands;
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < kBandStages; ++d) {
+      // full: the producer's expect-tx arrival; consumed: one a consumer
+      // warp of the block; empty: one a producer of the cluster
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(full0 + 8 * d) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(consumed0 + 8 * d), "r"(kBandConsumers / 32)
+                   : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(empty0 + 8 * d), "r"(kBandCluster)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();   // every barrier of the cluster is set up
+
+  if (threadIdx.x < 32) {
+    // -------------------------------------------------------- producer
+    // Lane 0 copies: item q into stage q % kBandStages once every block of
+    // the cluster has read item q - kBandStages there.  Lanes 1 ..
+    // kBandCluster forward: lane 1 + c tells block c that this block has
+    // read an item, as soon as its consumers have, so that the copies run
+    // ahead of the reads.
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      for (int q = 0; q < items; ++q) {
+        const int st = q % kBandStages;
+        if (q >= kBandStages)
+          wait_parity_cluster(empty0 + 8 * st, ((q / kBandStages) - 1) & 1);
+        issue_band(flat, p, q, rank, full0, ring);
+        const int round = q / p.n_bands;
+        if (q % p.n_bands == 0 && round + 1 < rounds) {
+          // the next round's chunk into L2 while this round sweeps
+          const size_t next =
+              (static_cast<size_t>(cluster + (round + 1) * p.n_clusters) *
+                   kBandCluster + rank) * kBandChunk;
+          if (next < p.n) {
+            const size_t left = p.n - next;
+            const size_t bytes =
+                (left < kBandChunk ? left : kBandChunk) * 4 / 16 * 16;
+            if (bytes > 0)
+              asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+                           :: "l"(idx + next),
+                              "r"(static_cast<uint32_t>(bytes))
+                           : "memory");
+          }
+        }
+      }
+    } else if (lane <= kBandCluster) {
+      // only the items a later item's copy waits for
+      for (int x = 0; x + kBandStages < items; ++x) {
+        const int st = x % kBandStages;
+        wait_parity(consumed0 + 8 * st, (x / kBandStages) & 1);
+        cluster_arrive(empty0 + 8 * st, static_cast<uint32_t>(lane - 1));
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    const int t = threadIdx.x - 32;
+    const int4* idx4 = reinterpret_cast<const int4*>(idx);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    const size_t n4 = p.n / 4;
+    int v[kBandSlots];
+    unsigned served = 0;
+    size_t chunk4 = 0;   // the round's chunk, in int4 from the start
+    for (int q = 0; q < items; ++q) {
+      const int b = q % p.n_bands;
+      const int st = q % kBandStages;
+      if (b == 0) {   // a new round: its chunk's indices into registers
+        const size_t chunk =
+            static_cast<size_t>(cluster + q / p.n_bands * p.n_clusters) *
+                kBandCluster + rank;
+        chunk4 = chunk * (kBandChunk / 4);
+        served = 0;
+#pragma unroll
+        for (int j = 0; j < kBandSlots / 4; ++j) {
+          const size_t p4 = chunk4 +
+                            static_cast<size_t>(j) * kBandConsumers + t;
+          int4 c = make_int4(0, 0, 0, 0);
+          if (p4 < n4) {
+            c = __ldcs(idx4 + p4);
+          } else {
+            // past the whole int4s: the tail's indices one by one, and
+            // the slots past the end served with nothing to serve
+            const size_t e = 4 * p4;
+            c.x = e < p.n ? idx[e] : 0;
+            c.y = e + 1 < p.n ? idx[e + 1] : 0;
+            c.z = e + 2 < p.n ? idx[e + 2] : 0;
+            c.w = e + 3 < p.n ? idx[e + 3] : 0;
+            const unsigned live = e >= p.n ? 0u : (1u << (p.n - e)) - 1u;
+            served |= (~live & 0xfu) << (4 * j);
+          }
+          v[4 * j] = 4 * min(max(c.x, 0), p.HW - 1);
+          v[4 * j + 1] = 4 * min(max(c.y, 0), p.HW - 1);
+          v[4 * j + 2] = 4 * min(max(c.z, 0), p.HW - 1);
+          v[4 * j + 3] = 4 * min(max(c.w, 0), p.HW - 1);
+        }
+      }
+      wait_parity(full0 + 8 * st, (q / kBandStages) & 1);
+      // slots hold byte offsets into the image until served
+      const uint32_t stage = ring + 4u * st * p.band;
+      const unsigned begin = 4u * b * p.band;
+      const unsigned len = 4u * min(p.band, p.HW - b * p.band);
+#pragma unroll
+      for (int r = 0; r < kBandSlots; ++r) {
+        const unsigned u = static_cast<unsigned>(v[r]) - begin;
+        const bool hit = !((served >> r) & 1u) && u < len;
+        float x;   // a slot that is not served reads the stage's first
+        asm("ld.shared.f32 %0, [%1];" : "=f"(x) : "r"(stage + (hit ? u : 0u)));
+        v[r] = hit ? __float_as_int(x) : v[r];
+        served |= static_cast<unsigned>(hit) << r;
+      }
+      __syncwarp();   // every lane of the warp has read the stage
+      if ((t & 31) == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                     :: "r"(consumed0 + 8 * st) : "memory");
+      if (b == p.n_bands - 1) {   // the round's values out
+#pragma unroll
+        for (int j = 0; j < kBandSlots / 4; ++j) {
+          const size_t p4 = chunk4 +
+                            static_cast<size_t>(j) * kBandConsumers + t;
+          const float4 x = make_float4(
+              __int_as_float(v[4 * j]), __int_as_float(v[4 * j + 1]),
+              __int_as_float(v[4 * j + 2]), __int_as_float(v[4 * j + 3]));
+          if (p4 < n4) {
+            __stcs(out4 + p4, x);
+          } else {
+            const size_t e = 4 * p4;
+            if (e < p.n) out[e] = x.x;
+            if (e + 1 < p.n) out[e + 1] = x.y;
+            if (e + 2 < p.n) out[e + 2] = x.z;
+          }
+        }
+      }
+    }
+  }
+  cluster_sync();   // no block leaves while a copy or arrival may reach it
+}
+
 unsigned blocks_for(size_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
@@ -462,7 +830,9 @@ int strip_setup(int* sms) {
       reinterpret_cast<const void*>(take_axis0_strip_kernel<true>),
       reinterpret_cast<const void*>(take_axis0_strip_kernel<false>),
       reinterpret_cast<const void*>(multi_warp_strip_kernel<true>),
-      reinterpret_cast<const void*>(multi_warp_strip_kernel<false>)};
+      reinterpret_cast<const void*>(multi_warp_strip_kernel<false>),
+      reinterpret_cast<const void*>(take_axis1_row_kernel<true>),
+      reinterpret_cast<const void*>(take_axis1_row_kernel<false>)};
   status = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
                                   device);
   for (const void* kernel : kernels)
@@ -575,6 +945,88 @@ extern "C" int flat_take_launch(const float* flat, int HW, const int* idx,
   flat_take_kernel<<<blocks_for(n), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(flat, HW, idx, n,
                                                           out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The "row" design of take_along_axis1: bands of rows staged in shared
+// memory, as many bands as make two blocks an SM (240 at 480 rows on 132
+// SMs); the "thread" kernel where one row does not fit in a block's
+// shared memory (W past 58112).
+extern "C" int take_along_axis1_row_launch(const float* img, const int* idx,
+                                           int H, int W, float* out,
+                                           void* stream) {
+  int sms = 0;
+  const int status = H < 1 || W < 1 ? static_cast<int>(cudaErrorInvalidValue)
+                                    : strip_setup(&sms);
+  if (status != 0) return status;
+  const long row_bytes = 4L * W;
+  if (row_bytes > kMaxSharedBytes)
+    return take_along_axis_launch(img, idx, H, W, 1, out, stream);
+  const int band = min((H + 2 * sms - 1) / (2 * sms),
+                       static_cast<int>(kMaxSharedBytes / row_bytes));
+  const unsigned grid = static_cast<unsigned>((H + band - 1) / band);
+  const long bytes = row_bytes * band;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W % 4 == 0)
+    take_axis1_row_kernel<true><<<grid, kThreads, bytes, s>>>(img, idx, H,
+                                                              W, band, out);
+  else
+    take_axis1_row_kernel<false><<<grid, kThreads, bytes, s>>>(img, idx, H,
+                                                               W, band, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// The plan of flat_take's "band" design for an image of HW floats (a
+// multiple of 4) and S x N indices on the current device: a persistent
+// grid of as many clusters as fit (one block an SM), at most one a group
+// of chunks.
+int plan_band(int HW, int S, int N, BandPlan* p, int* bytes) {
+  if (HW < 1 || HW % 4 != 0 || HW > INT_MAX / 4 || S < 1 || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int band = min(kBandFloats, HW);
+  *bytes = kBandHeader + 4 * kBandStages * band;
+  cudaError_t status = cudaFuncSetAttribute(
+      flat_take_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      *bytes);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kBandCluster);
+  config.blockDim = dim3(kBandThreads);
+  config.dynamicSmemBytes = *bytes;
+  int clusters = 0;
+  status = cudaOccupancyMaxActiveClusters(&clusters, flat_take_band_kernel,
+                                          &config);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  p->HW = HW;
+  p->band = band;
+  p->n_bands = (HW + band - 1) / band;
+  p->n = static_cast<size_t>(S) * N;
+  const size_t chunks = (p->n + kBandChunk - 1) / kBandChunk;
+  p->n_groups = static_cast<int>((chunks + kBandCluster - 1) / kBandCluster);
+  p->n_clusters = min(clusters, p->n_groups);
+  return 0;
+}
+
+}  // namespace
+
+// flat_take: the "band" design (see plan_band; idx and out 16-byte
+// aligned), and the "thread" kernel where HW % 4 != 0 (bands are copied
+// in 16-byte pieces).
+extern "C" int flat_take_band_launch(const float* flat, int HW,
+                                     const int* idx, int S, int N,
+                                     float* out, void* stream) {
+  if (HW % 4 != 0)
+    return flat_take_launch(flat, HW, idx, S, N, out, stream);
+  BandPlan p;
+  int bytes = 0;
+  const int status = plan_band(HW, S, N, &p, &bytes);
+  if (status != 0) return status;
+  flat_take_band_kernel<<<kBandCluster * p.n_clusters, kBandThreads, bytes,
+                          static_cast<cudaStream_t>(stream)>>>(flat, idx, p,
+                                                               out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,6 +43,21 @@
 //   launcher raises the dynamic shared-memory limit above 48 KB and
 //   refuses an S whose slab exceeds the 227 KB a block may hold.
 //
+// NaN window errors (a NaN or infinite key sample, an infinite sample,
+// squares that overflow) follow each form's own Pallas kernel:
+// - ssd_serial, both designs, follows _serial_kernel (= sweep.py's
+//   _ssd_kernel): the running minimum is taken with min.NaN (as
+//   jnp.minimum), so it turns NaN at the first NaN error and no later
+//   window becomes the best; a pixel with no best keeps en = window 0's
+//   error: (-1, 3e38, 3e38, that error).
+// - ssd_par, both designs, follows _par_kernel: the minimum over all
+//   windows keeps NaN, no window equals a NaN minimum, so the first
+//   window reaching it is M, the TPU kernel's own output: (M, NaN, the
+//   error of window M - 1, 3e38).  Otherwise bm is the first window
+//   reaching the minimum (-1 where it is >= 3e38), ep and en its
+//   neighbours' errors (3e38 outside the windows), a pixel with no
+//   match included.
+//
 // The serial kernel above is ssd_serial's "thread" design and the two-pass
 // kernel ssd_par's "slab" design.  Neither keeps a load in flight under its
 // arithmetic, and both pay for every window in full (the serial one the
@@ -69,11 +84,13 @@
 //   tensor map needs H*W % 4 == 0 and every input on the 16-byte grid;
 //   the launcher refuses other inputs, and an S whose two stages do not
 //   fit at P = 32 (S > 896).
-// - ssd_par "tile": pass 1 keeps the running minimum and the first window
-//   reaching it in registers (a NaN error is the minimum, as for
-//   torch.argmin); pass 2 recomputes the errors of the windows beside it
-//   from the resident samples with the same instructions, so they are
-//   the same bits.  No slab and no scans.
+// - ssd_par "tile": pass 1 keeps the running minimum of the windows in
+//   bounds and the first window reaching it in registers, and stops at a
+//   NaN error; the epilogue places the minimum among the windows out of
+//   bounds (3e38 each, as the Pallas kernel masks them) and recomputes
+//   the errors of the windows beside it from the resident samples with
+//   the same instructions, so they are the same bits.  No slab and no
+//   scans.
 // - ssd_serial "tile": score cheaply, re-score exactly only the
 //   candidates.  Pass 1 computes an approximate error a_m of every window
 //   in range (fused products, rsqrt.approx, no division) and keeps the
@@ -93,6 +110,29 @@
 //   outside [2^-60, 2^60] (NaN too), a valid window whose wn2 is not
 //   normal or is below (2^-28 / kn)^2, or a second candidate.  Both
 //   paths give the outputs of ssd_search bit for bit.
+//
+// No NaN error on a certified pixel.  The exact scan places NaN errors
+// by _serial_kernel's rule; the candidate path has no NaN error to
+// place.  Every pixel on which the approximate pass meets non-finite
+// inputs or a non-finite error is sent to the scan, so every pixel whose
+// exact errors hold a NaN is:
+//  - a NaN or infinite key sample makes kk NaN or inf, so kn is NaN or
+//    inf: outside [2^-60, 2^60];
+//  - a NaN or -inf sample fails '>= 0': its windows are invalid, 3e38 in
+//    both passes, whatever their arithmetic gives;
+//  - a +inf sample, or finite samples whose squares overflow, give a
+//    valid window wn2 = inf: above FLT_MAX, not normal;
+//  - else every valid window of a certified pixel has finite samples in
+//    [0, 2^64) (wn2 <= FLT_MAX) and finite key samples below 2^60 in
+//    magnitude (kn <= 2^60), so |corr| <= |w| |K| (1 + 6u) < 2^125 in
+//    both passes; the exact divisor d = fl(fl(sqrt(wn2)) kn) + 1e-16
+//    lies in [2^-28 (1 - 4u), 2^125], the approximate factors fl(2 /
+//    kn) <= 2^61 and rsqrt.approx(wn2) <= 2^64 (wn2 normal) are finite
+//    and nonzero, every intermediate product is finite, and both ratios
+//    are at most B <= 2 (1 + 6u) in magnitude, as derived below: the
+//    errors are finite (|a|, |e| < 4.1), never NaN.
+// So the certified set already excludes every such pixel, and the
+// filter needs no test of its own for them.
 //
 // The bound delta.  u = 2^-24.  Let s = sqrt(wn2) in exact arithmetic;
 // wn2 is the same left-to-right sum of rounded squares in both passes.
@@ -139,6 +179,13 @@ constexpr int kBulkPerThread = 4;         // float4 accumulators a thread
 constexpr int kBulkMaxStages = 32;
 constexpr int kBulkHeader = 8 * kBulkMaxStages;   // the stages' mbarriers
 constexpr int kBulkAlign = 128;           // bytes between stage starts
+
+// min(a, b) that keeps a NaN operand (jnp.minimum), where fminf drops it.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 template <int N> struct Vec;
 template <> struct Vec<1> { using T = float; };
@@ -366,8 +413,8 @@ __global__ void serial_kernel(const float* __restrict__ V,
         env[i] = kInf;
         ecv[i] = err;
         bm[i] = m;
-        best_err[i] = err;
       }
+      best_err[i] = min_nan(best_err[i], err);   // NaN from a NaN on
       prev[i] = err;
     }
 #pragma unroll
@@ -437,9 +484,11 @@ __global__ void par_kernel(const float* __restrict__ V,
     w3 = w4;
   }
 
-  // pass 2: the minimum, the first window reaching it, its neighbours
+  // pass 2: the minimum (NaN as soon as one error is NaN, as
+  // jnp.minimum), the first window reaching it (M for a NaN minimum),
+  // its neighbours
   float b = errs[t];
-  for (int m = 1; m < M; ++m) b = fminf(b, errs[m * kParPixels + t]);
+  for (int m = 1; m < M; ++m) b = min_nan(b, errs[m * kParPixels + t]);
   int bm = M;
   for (int m = M - 1; m >= 0; --m) {
     if (errs[m * kParPixels + t] == b) bm = m;
@@ -649,18 +698,20 @@ struct Window {
   }
 };
 
-// ssd_par "tile" for one pixel over its windows lo .. hi.
+// ssd_par "tile" for one pixel over its windows lo .. hi of M; the
+// windows out of bounds are 3e38, as in _par_kernel.
 __device__ __forceinline__ Result par_pixel(const Column& v,
                                             const float (&k)[5], int lo,
-                                            int hi, Chunks& ch) {
+                                            int hi, int M, Chunks& ch) {
   float kk = k[0] * k[0];
   kk = kk + k[1] * k[1];
   kk = kk + k[2] * k[2];
   kk = kk + k[3] * k[3];
   kk = kk + k[4] * k[4];
   const float kn_inv = rsqrtf(kk + kEps);
-  float b = FLT_MAX;   // above every masked window's 3e38
-  int bm = -1;
+  const float inf = __int_as_float(0x7f800000);
+  float b = inf;   // the least error in bounds below +inf, or NaN
+  int bm = -1;     // where it is (none: every error in bounds is +inf)
   if (lo <= hi) {
     ch.need(lo + 3);
     Window w;
@@ -681,7 +732,7 @@ __device__ __forceinline__ Result par_pixel(const Column& v,
         corr = corr + s4 * k[4];
         const float score = par_score(corr, wn2, kn_inv);
         const float err = w.last_bad < m ? score : kInf;
-        // the first minimum; a NaN is the minimum, as for torch.argmin
+        // the first minimum; a NaN error ends the search (b stays NaN)
         if (!(err >= b) && b == b) {
           b = err;
           bm = m;
@@ -690,9 +741,26 @@ __device__ __forceinline__ Result par_pixel(const Column& v,
       }
     }
   }
-  if (bm < 0 || b >= kInf) return Result{-1, kInf, kInf, kInf};
-  return Result{bm, b, bm > lo ? par_error(v, bm - 1, k, kn_inv) : kInf,
-                bm < hi ? par_error(v, bm + 1, k, kn_inv) : kInf};
+  // error of window x: scored in bounds, 3e38 out of them
+  const auto at = [&](int x) {
+    return x >= lo && x <= hi ? par_error(v, x, k, kn_inv) : kInf;
+  };
+  if (b != b) return Result{M, b, at(M - 1), kInf};   // no window equals NaN
+  if (bm >= 0 && b < kInf)
+    return Result{bm, b, at(bm - 1), at(bm + 1)};
+  // No match: the minimum g over all M windows is >= 3e38, and the first
+  // window f reaching it gives ep and en.  In bounds, the least error bi
+  // is first reached at fi (bi = +inf at lo where bm < 0); out of bounds
+  // every window is 3e38, the first fo.
+  const bool in_bounds = lo <= hi;
+  const bool out_of_bounds = lo > 0 || hi < M - 1 || !in_bounds;
+  const int fo = lo > 0 || !in_bounds ? 0 : hi + 1;
+  const int fi = bm >= 0 ? bm : lo;
+  const float bi = bm >= 0 ? b : inf;
+  const bool inner = in_bounds && (!out_of_bounds || (bi == kInf && fi < fo));
+  const int f = inner ? fi : fo;
+  return Result{-1, inner ? bi : kInf, f >= 1 ? at(f - 1) : kInf,
+                f + 1 < M ? at(f + 1) : kInf};
 }
 
 // Pass 1's approximate error of the window of w's samples and s4, whose
@@ -796,7 +864,8 @@ __device__ __forceinline__ Result serial_pixel(const Column& v,
     }
   }
   // the exact scan of ssd_search (windows outside lo .. hi score 3e38 and
-  // change nothing there)
+  // change nothing there; window 0, whose error a pixel with no best
+  // keeps as en, is scanned where it is in bounds)
   n.scan += lo <= hi;
   n.exact += max(hi - lo + 1, 0);
   ch.need(hi + 4);
@@ -810,8 +879,8 @@ __device__ __forceinline__ Result serial_pixel(const Column& v,
       r.en = kInf;
       r.ec = err;
       r.bm = m;
-      best = err;
     }
+    best = min_nan(best, err);   // NaN from the first NaN error on
     prev = err;
   }
   return r;
@@ -905,7 +974,7 @@ tile_kernel(const __grid_constant__ CUtensorMap map_v,
                     lo, hi);
       const Result r =
           kSerial ? serial_pixel(v, k, lo, hi, ch, n)
-                  : par_pixel(v, k, lo, hi, ch);
+                  : par_pixel(v, k, lo, hi, M, ch);
       best[p0 + c] = r.bm;
       ec[p0 + c] = r.ec;
       ep[p0 + c] = r.ep;

@@ -5,7 +5,8 @@
 
 runs, at 480x640 on the script's inputs (a uniform image and uniform
 row / column indices from a seeded generator): ``take_along_axis`` along
-rows (in each design) and along columns, the library's ``torch.gather``
+rows (in each design) and along columns (with its first kernel, one
+thread an element), the library's ``torch.gather``
 in place of the XLA lines, 16 fused two-pass index warps (in each
 design), and an empty kernel, the card's floor for one launch.  Each
 line gives the time in us (CUDA-event median and quartiles of 20
@@ -21,9 +22,9 @@ import torch
 
 from tadataka_torch.probes.exp_ssd import cuda_times
 from tadataka_torch.probes.gather import (
-    MULTI_WARP_DESIGNS, TAKE_ALONG_AXIS0_DESIGNS,
-    empty_launch, multi_warp, multi_warp_reference, same_bits,
-    take_along_axis0, take_along_axis1, take_along_axis_reference)
+    MULTI_WARP_DESIGNS, TAKE_ALONG_AXIS0_DESIGNS, empty_launch, first_kernel,
+    multi_warp, multi_warp_reference, same_bits, take_along_axis0,
+    take_along_axis1, take_along_axis_reference)
 
 SHAPE = (480, 640)
 S = 16
@@ -51,6 +52,9 @@ def kernels(img, rows, cols):
         for d in TAKE_ALONG_AXIS0_DESIGNS}
     calls["take_along_axis1"] = (
         lambda: take_along_axis1(img, cols),
+        lambda: take_along_axis_reference(img, cols, 1))
+    calls["take_along_axis1/thread"] = (
+        lambda: first_kernel(take_along_axis1, img, cols),
         lambda: take_along_axis_reference(img, cols, 1))
     calls.update({f"multi_warp/{d}": (
         lambda d=d: multi_warp(img, rows, cols, S, design=d),

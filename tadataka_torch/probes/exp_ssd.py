@@ -29,8 +29,8 @@ import torch
 from tadataka_torch.core.rounding import sqrt
 from tadataka_torch.vo.semi_dense.estimator import EPSILON
 from tadataka_torch.vo.semi_dense.sweep import (
-    _INF, _check_ssd_inputs, _window_errors, ssd_search, ssd_search_reference,
-    ssd_window_bounds)
+    _INF, _check_ssd_inputs, _serial_scan, _take, _window_errors, ssd_search,
+    ssd_search_reference, ssd_window_bounds)
 
 SHAPE = (480, 640)
 PLANES = (32, 48, 128, 256)
@@ -171,30 +171,6 @@ ssd_copy_floor.launches = 0
 ssd_serial_reference = ssd_search_reference
 
 _FLOAT_MAX = torch.finfo(torch.float32).max
-
-
-def _take(x, index):
-    return torch.take_along_dim(x, index[None], dim=0)[0]
-
-
-def _serial_scan(errs):
-    """ssd_search's serial scan over the exact errors (M, H, W): strict
-    ``<`` from 3e38 on, so the earliest window wins a tie and a NaN
-    error is never the best; ep the previous window's error, en the next
-    one's (3e38 outside the windows); a pixel with no best keeps en =
-    errs[0], as the scan leaves it.  It equals ssd_search_reference
-    wherever no window's error is NaN."""
-    M = errs.shape[0]
-    ranked = torch.where(torch.isnan(errs), _INF, errs)
-    best = torch.argmin(ranked, dim=0)
-    none = _take(ranked, best) >= _INF
-    ep = torch.where(best == 0, _INF, _take(errs, torch.clamp(best - 1,
-                                                              min=0)))
-    en = torch.where(best == M - 1, _INF,
-                     _take(errs, torch.clamp(best + 1, max=M - 1)))
-    return (torch.where(none, -1, best).to(torch.int32),
-            torch.where(none, _INF, _take(errs, best)),
-            torch.where(none, _INF, ep), torch.where(none, errs[0], en))
 
 
 def filter_approx_errors(V, K, rho=0.0):
@@ -410,11 +386,15 @@ ssd_serial.launches = 0
 # ------------------------------------------------------- two-pass search
 
 def ssd_par_reference(V, K, mlo, mhi):
-    """Plain version of the two-pass search: every window's error in the
-    rsqrt form err = 2 - 2 corr rsqrt(|w|^2 + eps) rsqrt(|K|^2 + eps),
-    sums left to right, then the first window reaching the minimum (a
-    NaN error is the minimum, as torch.argmin takes it) and its
-    neighbours' errors (3e38 outside the windows)."""
+    """Plain version of the two-pass search (``_par_kernel``,
+    benchmarks/exp_ssd.py:99): every window's error in the rsqrt form
+    err = 2 - 2 corr rsqrt(|w|^2 + eps) rsqrt(|K|^2 + eps), sums left to
+    right; then the minimum over the windows, which is NaN as soon as
+    one error is NaN (``jnp.minimum``), the first window that equals it
+    (bm; -1 where the minimum is >= 3e38) and its neighbours' errors
+    (3e38 outside the windows).  No window equals a NaN minimum, so a
+    pixel with a NaN error gets bm = M, the TPU kernel's own output,
+    with ec = NaN, ep = the last window's error and en = 3e38."""
     M = V.shape[0] - 4
     w = [V[k:k + M] for k in range(5)]
     kk = K[0] * K[0]
@@ -431,15 +411,16 @@ def ssd_par_reference(V, K, mlo, mhi):
     err = 2.0 - 2.0 * corr * torch.rsqrt(wn2 + EPSILON) * torch.rsqrt(
         kk + EPSILON)
     errs = torch.where(valid, err, _INF)
-    best = torch.argmin(errs, dim=0, keepdim=True)
-    ec = torch.take_along_dim(errs, best, dim=0)[0]
-    ep = torch.take_along_dim(errs, torch.clamp(best - 1, min=0), dim=0)[0]
-    en = torch.take_along_dim(errs, torch.clamp(best + 1, max=M - 1),
-                              dim=0)[0]
-    best = best[0]
-    ep = torch.where(best == 0, _INF, ep)
-    en = torch.where(best == M - 1, _INF, en)
-    return torch.where(ec >= _INF, -1, best).to(torch.int32), ec, ep, en
+    # torch.argmin takes a NaN as the minimum: ec is then that NaN
+    first = torch.argmin(errs, dim=0)
+    ec = _take(errs, first)
+    nan = torch.isnan(ec)
+    best = torch.where(nan, M, first)
+    ep = torch.where(best == 0, _INF, _take(errs, torch.clamp(best - 1,
+                                                              min=0)))
+    en = torch.where(best >= M - 1, _INF,
+                     _take(errs, torch.clamp(best + 1, max=M - 1)))
+    return (torch.where(ec >= _INF, -1, best).to(torch.int32), ec, ep, en)
 
 
 def ssd_par(V, K, mlo, mhi, design=PAR_DESIGNS[0]):

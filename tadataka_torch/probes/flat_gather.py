@@ -5,9 +5,10 @@
 
 runs, at 480x640 with 64 index rows of 307200 (one sample set per pixel)
 on the script's inputs from a seeded generator: the library's
-``torch.take`` in place of the XLA line, ``flat_take`` (clip, one
-gather per thread) and ``flat_take_rows`` (take_along_axis) in each of
-its designs, the default first, then the "stream" design on identity
+``torch.take`` in place of the XLA line, ``flat_take`` (clip) and its
+first kernel, one thread an element, timed in turns (medians and
+quartiles of 20 rounds), then ``flat_take_rows`` (take_along_axis) in
+each of its designs, the default first, then the "stream" design on identity
 indices (idx[s, n] = n: the same bytes with no random access, the
 gather's achievable floor) and on indices that share a 32-byte sector
 eight at a time (as random, with an eighth of the distinct sectors).  Each line gives the time in ms
@@ -15,13 +16,14 @@ eight at a time (as random, with an eighth of the distinct sectors).  Each line 
 its plain version.  It needs a CUDA device.
 """
 
+import statistics
 import sys
 
 import torch
 
-from tadataka_torch.probes.exp_ssd import cuda_ms
+from tadataka_torch.probes.exp_ssd import cuda_ms, cuda_times
 from tadataka_torch.probes.gather import (
-    FLAT_TAKE_ROWS_DEFAULT, FLAT_TAKE_ROWS_DESIGNS, flat_take,
+    FLAT_TAKE_ROWS_DEFAULT, FLAT_TAKE_ROWS_DESIGNS, first_kernel, flat_take,
     flat_take_reference, flat_take_rows, flat_take_rows_reference, same_bits)
 
 SHAPE = (480, 640)
@@ -54,18 +56,30 @@ def sector_indices(idx):
 
 def run(shape=SHAPE, log=print):
     """Time and check both kernels and torch.take on the card; returns
-    {"take": ms, "flat_take": {"ms", "correct"}, "flat_take_rows": ...
-    (the default design), "flat_take_rows/<design>": ... (every design),
-    "identity", "sector": ... ("stream" on identity and sector-sharing
-    indices)}."""
+    {"take": ms (in turns with flat_take), "flat_take": {"ms",
+    "quartiles", "correct"}, "flat_take/thread": ... (its first kernel),
+    "flat_take_rows": ... (the default design), "flat_take_rows/<design>":
+    ... (every design), "identity", "sector": ... ("stream" on identity
+    and sector-sharing indices)}."""
     img, idx = probe_inputs(shape)
     flat, idx64 = img.reshape(-1), idx.long()     # torch.take wants int64
-    results = {"take": cuda_ms(lambda: torch.take(flat, idx64))}
-    log(f"{'torch.take (S,N)':36s}: {results['take']:8.4f} ms")
+    plain = flat_take_reference(img, idx)
+    fns = {"flat_take": lambda: flat_take(img, idx),
+           "flat_take/thread": lambda: first_kernel(flat_take, img, idx)}
+    correct = {name: same_bits(fn(), plain) for name, fn in fns.items()}
+    fns["take"] = lambda: torch.take(flat, idx64)
+    results = {}
+    for name, ts in cuda_times(fns).items():
+        q1, _, q3 = statistics.quantiles(ts, n=4)
+        ms = statistics.median(ts)
+        log(f"{name:36s}: {ms:8.4f} ms (quartiles {q1:.4f} - {q3:.4f}, in "
+            "turns)" + (f"   correct={correct[name]}" if name in correct
+                        else ""))
+        results[name] = (ms if name == "take" else dict(
+            ms=ms, quartiles=(q1, q3), correct=correct[name]))
     designs = (FLAT_TAKE_ROWS_DEFAULT,) + tuple(
         d for d in FLAT_TAKE_ROWS_DESIGNS if d != FLAT_TAKE_ROWS_DEFAULT)
-    cases = [("flat_take", "cuda flat_take", flat_take, idx, {},
-              flat_take_reference)] + [
+    cases = [
         (f"flat_take_rows/{d}", f"cuda flat_take_rows {d}", flat_take_rows,
          idx, dict(design=d), flat_take_rows_reference) for d in designs] + [
         ("identity", "cuda flat_take_rows stream, idx=n", flat_take_rows,

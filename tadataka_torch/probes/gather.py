@@ -35,14 +35,18 @@ def gather_library():
         lib.multi_warp_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr, ptr]
         lib.multi_warp_strip_launch.argtypes = lib.multi_warp_launch.argtypes
         lib.empty_launch.argtypes = [ptr]
+        lib.take_along_axis1_row_launch.argtypes = [ptr, ptr, i32, i32, ptr,
+                                                    ptr]
         lib.flat_take_launch.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr]
+        lib.flat_take_band_launch.argtypes = lib.flat_take_launch.argtypes
         lib.flat_take_rows_launch.argtypes = [ptr, i32, ptr, i32, i32, i32,
                                               ptr, ptr]
         lib.flat_take_rows_cluster_bytes.argtypes = [i32]
         for fn in (lib.take_along_axis_launch,
                    lib.take_along_axis0_strip_launch, lib.multi_warp_launch,
                    lib.multi_warp_strip_launch, lib.empty_launch,
-                   lib.flat_take_launch, lib.flat_take_rows_launch,
+                   lib.take_along_axis1_row_launch, lib.flat_take_launch,
+                   lib.flat_take_band_launch, lib.flat_take_rows_launch,
                    lib.flat_take_rows_cluster_bytes):
             fn.restype = i32
         _library = built
@@ -141,6 +145,10 @@ def _take_along_axis(wrapper, img, idx, axis, design):
             status = lib.take_along_axis0_strip_launch(
                 img.data_ptr(), idx.data_ptr(), H, W, out.data_ptr(),
                 _stream())
+        elif design == "row":
+            status = lib.take_along_axis1_row_launch(
+                img.data_ptr(), idx.data_ptr(), H, W, out.data_ptr(),
+                _stream())
         else:
             status = lib.take_along_axis_launch(
                 img.data_ptr(), idx.data_ptr(), H, W, axis, out.data_ptr(),
@@ -159,9 +167,12 @@ def take_along_axis0(img, idx, design="strip"):
 
 
 def take_along_axis1(img, idx):
-    """``take_along_axis(img, idx, axis=1)``: out[i, j] = img[i, idx[i, j]]
-    (one thread an element)."""
-    return _take_along_axis(take_along_axis1, img, idx, 1, "thread")
+    """``take_along_axis(img, idx, axis=1)`` for img (H, W) float32 and
+    idx (H, W) int32: out[i, j] = img[i, idx[i, j]].  On the card a
+    block stages a band of whole rows in shared memory and gathers from
+    there; a row past 227 KB runs the first kernel, one thread an element
+    (:func:`first_kernel`)."""
+    return _take_along_axis(take_along_axis1, img, idx, 1, "row")
 
 
 take_along_axis0.launches = 0
@@ -215,9 +226,28 @@ def _flat(wrapper, img, idx, reference, launch_name, *options):
 
 
 def flat_take(img, idx):
-    """``take(img.ravel(), idx, mode="clip")`` for idx (S, N) int32."""
+    """``take(img.ravel(), idx, mode="clip")`` for idx (S, N) int32.  On
+    the card each block holds a chunk of indices in registers and the
+    image streams past them in bands through its shared memory,
+    multicast across a cluster of 2 blocks ("band",
+    csrc/gather_probes.cu); an image of H * W % 4 != 0 floats, which the
+    16-byte band copies cannot move, runs the first kernel
+    (:func:`first_kernel`)."""
     return _flat(flat_take, img, idx, flat_take_reference,
-                 "flat_take_launch")
+                 "flat_take_band_launch")
+
+
+def first_kernel(wrapper, img, idx):
+    """Run the first kernel of ``take_along_axis1`` or ``flat_take`` (one
+    thread an element, gathering from L2), counted on the wrapper: each
+    runs it where its own kernel cannot take the input, and the probes
+    time it beside the wrapper at the probe shapes."""
+    if wrapper is take_along_axis1:
+        return _take_along_axis(take_along_axis1, img, idx, 1, "thread")
+    if wrapper is flat_take:
+        return _flat(flat_take, img, idx, flat_take_reference,
+                     "flat_take_launch")
+    raise ValueError(f"first_kernel: not for {wrapper.__name__}")
 
 
 # flat_take_rows' designs (csrc/gather_probes.cu): "stream" gathers from

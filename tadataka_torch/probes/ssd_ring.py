@@ -68,6 +68,41 @@ def ssd_inputs(S, H, W, seed):
     return V, K, mlo, mhi
 
 
+def nan_inputs(S, H, W, seed):
+    """:func:`ssd_inputs` (S >= 16, H >= 64) with window errors that are
+    NaN, on the card, each kind on its own band of rows: one NaN key
+    sample on a tenth of the pixels (rows 0-7), a whole NaN key (8-15),
+    an infinite sample at a tenth of the (plane, pixel) pairs (16-23),
+    plane 11 infinite, so that window 7 after the best at the planted
+    window 6 is NaN (24-31), plane 0 infinite with every window allowed
+    (32-39: window 0 NaN, no best), bounds from window 3 and plane 3
+    infinite (40-47: the first window in bounds NaN), samples and keys
+    of 1e20 (48-55: squares and products overflow) and samples of 1e19
+    with keys of -1e20 (56-63: 2 corr overflows to -inf)."""
+    V, K, mlo, mhi = ssd_inputs(S, H, W, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dev = "cuda"
+    inf = float("inf")
+    some = torch.rand((H, W), generator=gen, device=dev) < 0.1
+    k = torch.randint(0, 5, (H, W), generator=gen, device=dev)
+    hit = some & (torch.arange(H, device=dev)[:, None] < 8)
+    K[k[hit], hit.nonzero()[:, 0], hit.nonzero()[:, 1]] = float("nan")
+    K[:, 8:16] = float("nan")
+    band = V[:, 16:24]
+    band[torch.rand(band.shape, generator=gen, device=dev) < 0.1] = inf
+    V[6:11, 24:32] = K[:, 24:32]
+    V[11, 24:32] = inf
+    mlo[24:48], mhi[24:48] = 0.0, float(S - 5)
+    V[0, 32:40] = inf
+    mlo[40:48] = 3.0
+    V[3, 40:48] = inf
+    V[:, 48:56] = 1e20
+    K[:, 48:56] = 1e20
+    V[:, 56:64] = 1e19
+    K[:, 56:64] = -1e20
+    return V, K, mlo, mhi
+
+
 def rect_inputs(S, H, W, seed):
     """A rect-plan-shaped search on the card: V is ``_shift_stack`` of one
     image shifted by a fractional disparity (-1 fill columns), K the key

@@ -119,24 +119,46 @@ def _window_errors(V, K, mlo, mhi):
     return torch.where(valid, err, _INF)
 
 
+def _take(x, index):
+    return torch.take_along_dim(x, index[None], dim=0)[0]
+
+
+def _serial_scan(errs):
+    """The serial scan of the Pallas kernel (``_ssd_kernel``,
+    tadataka_tpu/vo/semi_dense/sweep.py:222-230) over the window errors
+    (M, H, W), in closed form.  The scan keeps a running minimum from
+    3e38 with strict ``<`` (the earliest window wins a tie) and takes it
+    with ``jnp.minimum``, which turns NaN at the first NaN error and
+    stays NaN, so no window from the first NaN one (n0) on becomes the
+    best.  So: the first-index argmin of the errors with every window
+    from n0 on ranked 3e38; ep the previous window's error and en the
+    next one's (3e38 outside the windows; en may be the NaN of window
+    n0).  A pixel with no error below 3e38 before n0 has no best: (-1,
+    3e38, 3e38, window 0's error), as the scan leaves en at m = 0."""
+    M = errs.shape[0]
+    poisoned = torch.cumsum(torch.isnan(errs), dim=0) > 0
+    ranked = torch.where(poisoned, _INF, errs)
+    best = torch.argmin(ranked, dim=0)
+    none = _take(ranked, best) >= _INF
+    ep = torch.where(best == 0, _INF, _take(errs, torch.clamp(best - 1,
+                                                              min=0)))
+    en = torch.where(best == M - 1, _INF,
+                     _take(errs, torch.clamp(best + 1, max=M - 1)))
+    return (torch.where(none, -1, best).to(torch.int32),
+            torch.where(none, _INF, _take(errs, best)),
+            torch.where(none, _INF, ep), torch.where(none, errs[0], en))
+
+
 def ssd_search_reference(V, K, mlo, mhi):
-    """Plain PyTorch version of the SSD window search: the error volume,
-    its first-index argmin and the neighbouring windows' errors.
+    """Plain PyTorch version of the SSD window search: the error volume
+    and the Pallas kernel's serial scan over it (:func:`_serial_scan`),
+    so NaN errors are placed as on the TPU.  Wherever no window's error
+    is NaN or reaches 3e38 unmasked it equals the XLA search
+    (``_ssd_search_xla``): the first-index argmin and its neighbours.
 
     Returns (best (H,W) int32 with -1 = no valid window, err_center,
     err_prev, err_next); a neighbour outside the windows is 3e38."""
-    errs = _window_errors(V, K, mlo, mhi)
-    M = errs.shape[0]
-    best = torch.argmin(errs, dim=0, keepdim=True)
-    ec = torch.take_along_dim(errs, best, dim=0)[0]
-    ep = torch.take_along_dim(errs, torch.clamp(best - 1, min=0), dim=0)[0]
-    en = torch.take_along_dim(errs, torch.clamp(best + 1, max=M - 1),
-                              dim=0)[0]
-    best = best[0]
-    ep = torch.where(best == 0, _INF, ep)
-    en = torch.where(best == M - 1, _INF, en)
-    best = torch.where(ec >= _INF, -1, best).to(torch.int32)
-    return best, ec, ep, en
+    return _serial_scan(_window_errors(V, K, mlo, mhi))
 
 
 def ssd_window_bounds(mlo, mhi, S):

@@ -12,6 +12,8 @@ sums in the same order, also bit-equal.  The kernels themselves are
 tested on the card in test_torch_kernels.py.
 """
 
+from functools import partial
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +52,36 @@ def test_take_along_axis_matches_jnp(shape, axis):
     assert torch.isnan(port).any() and not torch.isnan(port).all()
     assert_same(port, jnp.take_along_axis(jnp.asarray(img), jnp.asarray(idx),
                                           axis=axis))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("design", ["row", "thread"])
+def test_take_along_axis1_designs_match_jnp(shape, design):
+    """take_along_axis1 ("row") and its first kernel ("thread"), on their
+    CPU path, against ``jnp.take_along_axis(..., axis=1)``, NaN in the
+    same places."""
+    img, _, cols = gather_case(shape)
+    call = (g.take_along_axis1 if design == "row"
+            else partial(g.first_kernel, g.take_along_axis1))
+    port = call(torch.from_numpy(img), torch.from_numpy(cols))
+    assert torch.isnan(port).any() and not torch.isnan(port).all()
+    assert_same(port, jnp.take_along_axis(jnp.asarray(img),
+                                          jnp.asarray(cols), axis=1))
+
+
+@pytest.mark.parametrize("S, N", [(8, 713), (13, 713), (3, 5)])
+@pytest.mark.parametrize("design", ["thread", "band"])
+def test_flat_take_designs_match_jnp_take_clip(design, S, N):
+    """flat_take ("band") and its first kernel ("thread"), on their CPU
+    path, against ``jnp.take(..., mode="clip")`` on planted negative and
+    past-the-end indices, with S*N % 4 of 0, 1 and 3."""
+    img, idx = gather_case((23, 31), S=S)
+    idx = np.resize(idx, (S, N))
+    call = (g.flat_take if design == "band"
+            else partial(g.first_kernel, g.flat_take))
+    port = call(torch.from_numpy(img), torch.from_numpy(idx))
+    assert_same(port, jnp.take(jnp.asarray(img).ravel(), jnp.asarray(idx),
+                               mode="clip"))
 
 
 @pytest.mark.parametrize("shape", SHAPES)

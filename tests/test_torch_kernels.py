@@ -10,6 +10,7 @@ Without a CUDA device the ``cuda`` tests skip (a kernel has no CPU form).
 """
 
 import inspect
+from functools import partial
 
 import numpy as np
 import pytest
@@ -22,6 +23,9 @@ SSD_CASES = ["planted", "window_mask", "invalid_samples", "ties",
              "all_invalid", "ragged_rows"]
 # the cases of ssd_serial "tile"'s candidate filter (see ssd_case)
 FILTER_CASES = ["near_tie", "nan_key", "tiny_wn2"]
+# window errors that are NaN (see nan_case)
+NAN_CASES = ["nan_key_sample", "nan_key_rows", "inf_sample", "nan_after_best",
+             "nan_first_in_bounds", "nan_window0", "overflow"]
 
 
 def window_errors_np(V, K):
@@ -112,8 +116,71 @@ def ssd_case(case, S, seed=7):
     return V, K, mlo, mhi
 
 
+def nan_case(case, S=16, shape=(8, 16), seed=17):
+    """(V, K, mlo, mhi) float32 numpy inputs (S >= 16 planes, H >= 8
+    rows; tests/test_torch_ssd_nan.py holds them against the Pallas
+    kernels at 16 planes and 8x16), the key planted at window 6 of every
+    pixel (so most pixels have a clear
+    best) and one kind of NaN error on part of the pixels:
+
+    - "nan_key_sample": one NaN sample in the key of a quarter of them;
+    - "nan_key_rows": the whole key NaN on rows 2-3;
+    - "inf_sample": an infinite sample at a random plane of a quarter;
+    - "nan_after_best": plane 11 infinite on rows 0-3, so windows 7-11
+      are NaN, the first right after the best (en = NaN);
+    - "nan_first_in_bounds": window bounds from 3 on rows 4-7 and plane 3
+      infinite there: the first window in bounds is NaN, no best;
+    - "nan_window0": plane 0 infinite on rows 0-3, every window allowed:
+      window 0 is NaN, no best, en = NaN;
+    - "overflow": samples of 1e20 on rows 0-1 (squares overflow to inf:
+      err 2 where the key is finite), keys of 1e20 too on row 1 (corr
+      and wn2 inf: NaN), keys of -1e20 on row 2 with samples of 1e19
+      (2 corr overflows to -inf: err +inf in the rsqrt form)."""
+    gen = np.random.default_rng(seed)
+    H, W = shape
+    M = S - 4
+    V = gen.random((S, H, W)).astype(np.float32)
+    K = V[6:11] + np.float32(0.01) * gen.random((5, H, W),
+                                                dtype=np.float32)
+    mlo = np.zeros((H, W), np.float32)
+    mhi = np.full((H, W), float(M - 1), np.float32)
+    some = gen.random((H, W)) < 0.25
+    if case == "nan_key_sample":
+        i, j = np.nonzero(some)
+        K[gen.integers(0, 5, i.shape), i, j] = np.nan
+    elif case == "nan_key_rows":
+        K[:, 2:4] = np.nan
+    elif case == "inf_sample":
+        i, j = np.nonzero(some)
+        V[gen.integers(0, S, i.shape), i, j] = np.inf
+    elif case == "nan_after_best":
+        V[11, :4] = np.inf
+    elif case == "nan_first_in_bounds":
+        mlo[4:] = 3.0
+        V[3, 4:] = np.inf
+    elif case == "nan_window0":
+        V[0, :4] = np.inf
+    elif case == "overflow":
+        V[:, 0:2] = np.float32(1e20)
+        K[:, 1] = np.float32(1e20)
+        V[:, 2] = np.float32(1e19)
+        K[:, 2] = np.float32(-1e20)
+    return V, K, mlo, mhi
+
+
 def tensors(arrays, device="cpu", dtype=torch.float32):
     return [torch.tensor(a, dtype=dtype, device=device) for a in arrays]
+
+
+def search_case(case, S):
+    """The inputs of an SSD_CASES, FILTER_CASES or NAN_CASES case."""
+    return nan_case(case, S) if case in NAN_CASES else ssd_case(case, S)
+
+
+def same_or_both_nan(a, b):
+    """Equal, NaN in the same places (NaN payloads aside)."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.where(a.isnan(), 0, a), torch.where(b.isnan(), 0, b))
 
 
 def test_ssd_search_rejects_bad_input():
@@ -138,21 +205,27 @@ def test_ssd_search_cpu_runs_the_plain_version_uncounted():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [16, 48])
-@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("case", SSD_CASES + NAN_CASES)
 def test_ssd_kernel_bit_equal_to_plain(case, S):
-    """On the card: the CUDA kernel against the plain version on the same
-    CUDA tensors, bit for bit, and one launch counted per call."""
+    """On the card: the CUDA kernel (both designs) against the plain
+    version on the same CUDA tensors, bit for bit with NaN in the same
+    places (NaN window errors placed by the Pallas kernel's rule), and
+    one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
-    args = tensors(ssd_case(case, S), device="cuda")
-    before = ssd_search.launches
-    out = ssd_search(*args)
+    args = tensors(search_case(case, S), device="cuda")
     ref = ssd_search_reference(*args)
-    torch.cuda.synchronize()
-    assert ssd_search.launches == before + 1
-    for port, plain in zip(out, ref):
-        assert port.device.type == "cuda"
-        assert torch.equal(port, plain)
+    for design in ("ring", "thread"):
+        before = ssd_search.launches
+        out = ssd_search(*args, design=design)
+        torch.cuda.synchronize()
+        assert ssd_search.launches == before + 1
+        for port, plain in zip(out, ref):
+            assert port.device.type == "cuda"
+            assert same_or_both_nan(port, plain), (design, case, S)
+    if case in NAN_CASES:
+        assert ref[1].isnan().any() or ref[3].isnan().any() or case in (
+            "nan_first_in_bounds", "inf_sample")
 
 
 # ------------------------------------------------- SSD probes (exp_ssd.py)
@@ -181,19 +254,18 @@ def cuda_or_skip():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [16, 48, 128])
-@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("case", SSD_CASES + NAN_CASES)
 def test_probe_kernels_against_plain(case, S):
     """On the card: the copy floor bit-equal to its plain version in
     every variant; every ssd_serial "thread" variant bit-equal to
-    ssd_search and to the plain version; ssd_par "slab"'s best equal to
-    its plain version's on >= 0.9999 of pixels with the errors within
-    1e-6 where best is equal (rsqrtf may differ from torch.rsqrt in the
-    last bit); one launch
-    counted per call.  At S = 128 ssd_par's slab (63.5 KB) takes the
-    launch path past the 48 KB default of dynamic shared memory."""
+    ssd_search and to the plain version; ssd_par "slab" bit-equal to its
+    plain version; NaN in the same places throughout (each form by its
+    Pallas kernel's rule); one launch counted per call.  At S = 128
+    ssd_par's slab (63.5 KB) takes the launch path past the 48 KB
+    default of dynamic shared memory."""
     cuda_or_skip()
     from tadataka_torch.probes import exp_ssd as probes
-    arrays = ssd_case(case, S)
+    arrays = search_case(case, S)
     if case == "ragged_rows":       # W = 37: the vector loads need W % 4
         arrays = tuple(a[..., :36] for a in arrays)
     args = tensors(arrays, device="cuda")
@@ -202,22 +274,21 @@ def test_probe_kernels_against_plain(case, S):
         out = probes.ssd_copy_floor(args[0], variant)
         torch.cuda.synchronize()
         assert probes.ssd_copy_floor.launches == before + 1
-        assert torch.equal(out, probes.ssd_copy_floor_reference(args[0]))
+        assert same_or_both_nan(out, probes.ssd_copy_floor_reference(
+            args[0]))
     search = ssd_search(*args)
     for variant in probes.SERIAL_VARIANTS:
         out = probes.ssd_serial(*args, *variant, design="thread")
         torch.cuda.synchronize()
         for a, b, c in zip(out, search, probes.ssd_serial_reference(*args)):
-            assert torch.equal(a, b) and torch.equal(a, c)
+            assert same_or_both_nan(a, b) and same_or_both_nan(a, c)
     before = probes.ssd_par.launches
     out = probes.ssd_par(*args, design="slab")
     ref = probes.ssd_par_reference(*args)
     torch.cuda.synchronize()
     assert probes.ssd_par.launches == before + 1
-    same = out[0] == ref[0]
-    assert same.float().mean().item() >= 0.9999
-    for a, b in zip(out[1:], ref[1:]):
-        assert torch.where(same, (a - b).abs(), 0.0).max().item() <= 1e-6
+    for a, b in zip(out, ref):
+        assert same_or_both_nan(a, b), (case, S)
 
 
 @pytest.mark.cuda
@@ -246,34 +317,19 @@ def test_probe_kernels_refuse():
                        probes.ssd_copy_floor_reference(odd))
 
 
-def same_or_both_nan(a, b):
-    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
-        a.nan_to_num(0.0), b.nan_to_num(0.0))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [16, 48, 128, 256])
-@pytest.mark.parametrize("case", SSD_CASES + FILTER_CASES)
+@pytest.mark.parametrize("case", SSD_CASES + FILTER_CASES + NAN_CASES)
 def test_tile_designs_against_plain(case, S):
-    """On the card: ssd_serial "tile" bit-equal to both designs of
-    ssd_search, to the plain version and to its plain filter; ssd_par
-    "tile" within today's bounds of its plain version (best equal on >=
-    0.9999 of pixels, errors within 1e-6 where best is equal, NaN in the
-    same places), "slab" too but on the pixels whose key is NaN (its
-    fminf skips a NaN error); one launch counted per call in every
-    design.
-
-    NaN errors ("nan_key") are placed differently by each form: the
-    plain version's argmin takes the first NaN as the minimum, the
-    serial scans never take one, and a pixel with no window keeps en =
-    window 0's error (NaN here) in ssd_search "thread" (as in the Pallas
-    kernel) but 3e38 in "ring".  There ssd_serial is held bit-equal to
-    "thread" everywhere, to "ring" but on en of the pixels with no
-    window, and to the plain version on the pixels whose key is
-    finite."""
+    """On the card: both designs of ssd_serial bit-equal to both designs
+    of ssd_search, to the plain version and to its plain filter; both
+    designs of ssd_par bit-equal to their plain version; NaN in the same
+    places throughout, each form placing NaN errors by its own Pallas
+    kernel's rule (ssd_serial and ssd_search by _ssd_kernel's, ssd_par
+    by _par_kernel's); one launch counted per call in every design."""
     cuda_or_skip()
     from tadataka_torch.probes import exp_ssd as probes
-    arrays = ssd_case(case, S)
+    arrays = search_case(case, S)
     if case == "ragged_rows":       # 13 x 37: "tile" needs H * W % 4 == 0
         arrays = tuple(a[..., :36] for a in arrays)
     args = tensors(arrays, device="cuda")
@@ -281,40 +337,24 @@ def test_tile_designs_against_plain(case, S):
     ring = ssd_search(*args, design="ring")
     plain = probes.ssd_serial_reference(*args)
     filtered, _ = probes.ssd_serial_filter_reference(*args)
-    finite = ~torch.isnan(args[1]).any(0)
     for design in probes.SERIAL_DESIGNS:
         before = probes.ssd_serial.launches
         out = probes.ssd_serial(*args, design=design)
         torch.cuda.synchronize()
         assert probes.ssd_serial.launches == before + 1
-        found = out[0] >= 0
-        for i, (a, b, r, c, d) in enumerate(zip(out, thread, ring, plain,
-                                                filtered)):
-            assert same_or_both_nan(a, b), (design, case, S)
-            assert same_or_both_nan(a, d), (design, case, S)
-            if case == "nan_key":
-                keep = found if i == 3 else torch.ones_like(found)
-                assert torch.equal(a[keep], r[keep])
-                assert torch.equal(a[finite], c[finite])
-            else:
-                assert torch.equal(a, r) and torch.equal(a, c)
+        for a, *others in zip(out, thread, ring, plain, filtered):
+            for b in others:
+                assert same_or_both_nan(a, b), (design, case, S)
     ref = probes.ssd_par_reference(*args)
     for design in probes.PAR_DESIGNS:
         before = probes.ssd_par.launches
         out = probes.ssd_par(*args, design=design)
         torch.cuda.synchronize()
         assert probes.ssd_par.launches == before + 1
-        # "slab" takes its minimum with fminf, which skips a NaN error
-        held = finite if design == "slab" else torch.ones_like(finite)
-        same = (out[0] == ref[0])[held]
-        assert same.float().mean().item() >= 0.9999, (design, case, S)
-        for a, b in zip(out[1:], ref[1:]):
-            a, b = a[held], b[held]
-            assert torch.equal(a.isnan()[same], b.isnan()[same])
-            d = torch.where(same & ~a.isnan(), (a - b).abs(), 0.0)
-            assert d.max().item() <= 1e-6, (design, case, S)
-    if case == "nan_key":
-        assert torch.isnan(ref[1]).any()
+        for a, b in zip(out, ref):
+            assert same_or_both_nan(a, b), (design, case, S)
+    if case in ("nan_key", "nan_key_rows", "nan_key_sample"):
+        assert torch.isnan(ref[1]).any() and torch.isnan(plain[3]).any()
 
 
 @pytest.mark.cuda
@@ -457,8 +497,8 @@ def bounds_case(case, S, shape, seed):
       1e10 and 1e15 among the uniform ones, so that window norms and
       correlations are 0, tiny and huge, and a fifth of the pixels see
       only zeros (the ring's fast root and division hand these to the
-      IEEE operators; no error overflows to NaN, whose argmin the
-      plain version and the kernels would place differently)."""
+      IEEE operators; no error overflows to NaN: the NaN cases are
+      NAN_CASES)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     H, W = shape
     N, M = H * W, S - 4
@@ -740,6 +780,90 @@ def test_flat_take_rows_designs_on_cpu():
     assert g.FLAT_TAKE_ROWS_DEFAULT in g.FLAT_TAKE_ROWS_DESIGNS
     with pytest.raises(ValueError, match="no design"):
         g.flat_take_rows(img, idx, design="tiles")
+
+
+def test_row_and_band_designs_on_cpu():
+    """On CPU tensors take_along_axis1 and flat_take, and the first
+    kernel of each, return the plain versions' bits, with planted edge
+    indices and S*N % 4 != 0, and count no launch; neither wrapper takes
+    a design or band option, and the first kernel is only theirs."""
+    from tadataka_torch.probes import gather as g
+    assert list(inspect.signature(g.take_along_axis1).parameters) == [
+        "img", "idx"]
+    assert list(inspect.signature(g.flat_take).parameters) == ["img", "idx"]
+    img, _, cols = (torch.from_numpy(x) for x in gather_case((11, 37)))
+    fimg, idx = (torch.from_numpy(x) for x in gather_case((13, 7), S=3))
+    counts = [g.take_along_axis1.launches, g.flat_take.launches]
+    ref = g.take_along_axis_reference(img, cols, 1)
+    assert torch.isnan(ref).any()
+    assert g.same_bits(g.take_along_axis1(img, cols), ref)
+    assert g.same_bits(g.first_kernel(g.take_along_axis1, img, cols), ref)
+    ref = g.flat_take_reference(fimg, idx)
+    assert g.same_bits(g.flat_take(fimg, idx), ref)
+    assert g.same_bits(g.first_kernel(g.flat_take, fimg, idx), ref)
+    assert counts == [g.take_along_axis1.launches, g.flat_take.launches]
+    with pytest.raises(TypeError):
+        g.take_along_axis1(img, cols, design="thread")
+    with pytest.raises(TypeError):
+        g.flat_take(fimg, idx, band_bytes=16)
+    with pytest.raises(ValueError, match="not for"):
+        g.first_kernel(g.take_along_axis0, img, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (479, 641), (5, 3),
+                                   (300, 37), (300, 36), (3, 58120)])
+def test_take_along_axis1_row_bit_equal_to_plain(shape):
+    """On the card: take_along_axis1 and its first kernel ("thread")
+    bit-equal to the plain version, NaN in the same places, on planted
+    negative, out-of-range and edge indices: "row" stages its band of
+    rows by 16-byte copies at 480x640 and 300x36, by plain loads at
+    479x641, 5x3 and 300x37, and runs the "thread" kernel where a row
+    passes 227 KB (58120 columns); one launch counted per call."""
+    cuda_or_skip()
+    from tadataka_torch.probes import gather as g
+    img, _, cols = gather_case(shape)
+    img = torch.tensor(img, device="cuda")
+    cols = torch.tensor(cols, device="cuda")
+    ref = g.take_along_axis_reference(img, cols, 1)
+    assert torch.isnan(ref).any()
+    for design, call in (("row", g.take_along_axis1), ("thread", partial(
+            g.first_kernel, g.take_along_axis1))):
+        before = g.take_along_axis1.launches
+        out = call(img, cols)
+        torch.cuda.synchronize()
+        assert g.take_along_axis1.launches == before + 1
+        assert g.same_bits(out, ref), (shape, design)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, S, N", [
+    ((480, 640), 64, 307200), ((480, 640), 20, 307200),
+    ((480, 640), 7, 1003), ((200, 300), 9, 4099), ((1000, 1000), 3, 5001),
+    ((24, 40), 3, 5), ((24, 40), 1, 1), ((24, 40), 40, 33), ((1, 4), 5, 7),
+    ((479, 641), 20, 307039), ((5, 3), 3, 5)])
+def test_flat_take_band_bit_equal_to_plain(shape, S, N):
+    """On the card: flat_take and its first kernel ("thread") bit-equal
+    to the plain version on planted negative, past-the-end and edge
+    indices (clipped): "band" at the probe's shape, with a tail of S*N %
+    4 = 1, 3 and chunks past the end of the indices (blocks of a cluster
+    with no slot), with a last band shorter than the rest (480x640,
+    200x300, 1000x1000), one band of the whole image and one of a single
+    16-byte piece (1x4); an image of H*W % 4 != 0 floats (479x641, 5x3)
+    runs the first kernel; one launch counted per call."""
+    cuda_or_skip()
+    from tadataka_torch.probes import gather as g
+    img, idx = gather_case(shape, S=S)
+    img = torch.tensor(img, device="cuda")
+    idx = torch.tensor(np.resize(idx, (S, N)), device="cuda")
+    ref = g.flat_take_reference(img, idx)
+    for design, call in (("band", g.flat_take),
+                         ("thread", partial(g.first_kernel, g.flat_take))):
+        before = g.flat_take.launches
+        out = call(img, idx)
+        torch.cuda.synchronize()
+        assert g.flat_take.launches == before + 1
+        assert g.same_bits(out, ref), (shape, S, N, design)
 
 
 @pytest.mark.cuda

@@ -46,30 +46,30 @@ def assert_same(out, ref):
     """Equal outputs, NaN in the same places."""
     for a, b in zip(out, ref):
         assert torch.equal(a.isnan(), b.isnan())
-        assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+        assert torch.equal(torch.where(a.isnan(), 0, a),
+                           torch.where(b.isnan(), 0, b))
 
 
 @pytest.mark.parametrize("S", [16, 48])
 @pytest.mark.parametrize("case", SSD_CASES + FILTER_CASES)
 def test_filter_gives_the_exact_search(case, S):
-    """The filter's outputs are ssd_search_reference's bits; a pixel with
-    NaN in its key (where the plain version's argmin takes the NaN error
-    and ssd_search's strict '<' never does) has ssd_search's answer:
-    no window, 3e38.  A pixel with one candidate scores at most 3
-    windows exactly; a tied one sweeps again and scores a few."""
+    """The filter's outputs are ssd_search_reference's bits, NaN in the
+    same places: also on a pixel with NaN in its key, which the filter
+    sends to the exact scan, where the Pallas kernel's rule leaves it no
+    best, 3e38 and window 0's NaN error.  A pixel with one candidate
+    scores at most 3 windows exactly; a tied one sweeps again and scores
+    a few."""
     args = tensors(ssd_case(case, S))
     out, (n_exact, n_scan, n_sweep) = probes.ssd_serial_filter_reference(
         *args)
     ref = ssd_search_reference(*args)
+    assert_same(out, ref)
     if case == "nan_key":
         nan = ~finite_key(args[1])
         assert nan.any()
-        for a, b in zip(out, ref):
-            assert torch.equal(a[~nan], b[~nan])
         assert (out[0][nan] == -1).all()
         assert (out[1][nan] == 3e38).all() and (out[2][nan] == 3e38).all()
-    else:
-        assert_same(out, ref)
+        assert torch.isnan(out[3][nan]).all()
     H, W = args[2].shape
     assert 0 <= n_scan + n_sweep <= H * W
     if case in ("planted", "invalid_samples"):
@@ -151,8 +151,8 @@ def test_delta_is_the_kernels():
 
 def test_tile_designs_on_cpu():
     """On CPU tensors ssd_serial "tile" runs the plain filter and ssd_par
-    "tile" the plain two-pass search (a NaN error is the minimum, as for
-    torch.argmin); neither counts a launch, ``rescore`` gains the
+    "tile" the plain two-pass search (a pixel with a NaN error gets
+    ``_par_kernel``'s bm = M and ec = NaN); neither counts a launch, ``rescore`` gains the
     filter's counts, and unknown designs, a bad ``rescore`` (or one
     given to "thread") and a shape "tile" refuses raise; ssd_serial's
     default design follows S ("tile" up to SERIAL_TILE_MAX_S, "thread"
@@ -167,7 +167,8 @@ def test_tile_designs_on_cpu():
     assert_same(probes.ssd_par(*args, design="tile"),
                 probes.ssd_par_reference(*args))
     nan = torch.isnan(args[1]).any(0)
-    assert torch.isnan(probes.ssd_par(*args, design="tile")[1][nan]).any()
+    par = probes.ssd_par(*args, design="tile")
+    assert torch.isnan(par[1][nan]).all() and (par[0][nan] == 12).all()
     assert counts == [probes.ssd_serial.launches, probes.ssd_par.launches]
     assert [probes.serial_design(S) for S in (
         5, probes.SERIAL_TILE_MAX_S, probes.SERIAL_TILE_MAX_S + 1)] == [
