@@ -19,7 +19,13 @@ the first two are recorded as the main path made them, and both
 designs are checked and timed on them.  Last it runs DVO on the CPU and
 on the card on the same inputs and drives ``DvoTrajectory`` over 8
 frames of a TUM RGB-D freiburg1 scene at 480x640, exported and read
-back through the TUM loader, gated on its trajectory error.  Every
+back through the TUM loader, gated on its trajectory error.  Then
+stereo depth at 480x640 and 128 disparities (``stereo``), the EuRoC
+export at 480x752 read back with its stereo depth, and a NewTsukuba tree
+read back (``euroc``), and ``PipelinedSemiDenseVO`` (tracker and mapper
+on two streams) at 480x640 beside ``SemiDenseVO`` (``pipelined``), each
+held bit for bit to the CPU and gated against the JAX package's
+readings.  Every
 phase prints lines; any failure ends the script with a traceback and a
 non-zero exit.  The last lines are the card's name and power limit, a
 JSON line of per-kernel results, and a JSON line ``{"ok": true,
@@ -78,6 +84,19 @@ SLICE_ARGS = dict(default_depth=8.0, default_variance=1.0,
 LATERAL = dict(step=(0.1, 0.005, 0.0), yaw=0.002)
 N_RECT_FRAMES = 10
 N_SCATTER_FRAMES = 5
+# the stereo phase: phase 5's scene from a rectified pair 1.4 m apart,
+# which puts the planes' disparities at 72-119 px at focal 480, matched
+# as bench.py matches its NewTsukuba pairs
+STEREO_BASELINE = 1.4
+STEREO_MAX_DISPARITY = 128
+STEREO_RADIUS = 3
+# the euroc phase: EuRoC's own image size, five frames, stereo depth at
+# the disparity range of tests/realdata/test_euroc_e2e.py
+EUROC_SHAPE = (480, 752)
+N_EUROC_FRAMES = 5
+EUROC_MAX_DISPARITY = 64
+# the pipelined phase's CPU-against-card check
+PIPELINED_CHECK = dict(shape=(120, 160), focal=120.0, frames=5)
 
 
 def log(phase, message):
@@ -180,6 +199,36 @@ def run_sequence(frames, vo, device, before=None):
         sync(device)
         ms.append((time.perf_counter() - t0) * 1e3)
     return states, ms
+
+
+def stereo_pair(shape=VGA, focal=VGA_FOCAL, baseline=STEREO_BASELINE):
+    """Phase 5's three planes seen by a rectified pair, the left camera
+    at the origin and the right ``baseline`` along its x axis: (camera
+    parameters, left image, right image, left depth), rendered on the
+    CPU."""
+    from tadataka_torch.camera import CameraModel, CameraParameters
+    from tadataka_torch.core.pose import Pose
+    from tadataka_torch.dataset import render_plane_scene
+    from tadataka_torch.dataset.synthetic import MULTI_PLANES
+    H, W = shape
+    params = CameraParameters.create((focal, focal), (W / 2.0, H / 2.0))
+    cm = CameraModel.create(params)
+    left, depth = render_plane_scene(cm, Pose.identity(), shape,
+                                     planes=MULTI_PLANES)
+    right, _ = render_plane_scene(
+        cm, Pose(torch.eye(3), torch.tensor([baseline, 0.0, 0.0])), shape,
+        planes=MULTI_PLANES)
+    return params, left, right, depth
+
+
+def euroc_stereo(frame0, frame1):
+    """(gray cam0, gray cam1, baseline) of one EuRoC stereo frame, as
+    tests/realdata/test_euroc_e2e.py takes them: uint8 / 255, and the
+    distance between the two camera centres."""
+    baseline = float(torch.linalg.norm(frame1.pose.t.double()
+                                       - frame0.pose.t.double()))
+    gray = [f.image.to(torch.float32) / 255.0 for f in (frame0, frame1)]
+    return gray[0], gray[1], baseline
 
 
 # ---------------------------------------------------------------- phases
@@ -1096,6 +1145,277 @@ def phase_app_gate(device="cuda"):
     assert success > 0.2 and err < 1.0 and cos > 0.9, (success, err, cos)
 
 
+# The JAX package's estimate_depth_from_stereo on the stereo phase's pair
+# (tools/stereo_vs_jax.py, on the CPU): valid share 0.2859, median
+# |depth - GT| 0.003343 m on valid pixels; on the euroc phase's export,
+# frame 0 at max_disparity 64: valid share 0.7689, median 0.05115 m.
+# Gated as phase 5 is: half the reference's share, 1.25 x its error.
+STEREO_GATES = dict(valid=0.5 * 0.2859, err=1.25 * 0.003343)
+EUROC_GATES = dict(valid=0.5 * 0.7689, err=1.25 * 0.05115)
+# The JAX PipelinedSemiDenseVO (both stages on one device) on phase 5's
+# trajectory and parameters at 1/4 and 1/2 size, random initial map
+# (tools/slice_vs_jax.py --app pipelined), last frame after flush_map:
+# SUCCESS share 0.0987-0.1493, median |depth - GT| 1.138-1.165 on
+# SUCCESS pixels, cos(t_est, t_gt) 0.609-0.695; phase 5's margins.
+PIPELINED_GATES = dict(success=0.5 * 0.0987, err=1.25 * 1.165,
+                       cos=0.609 - 0.1)
+
+
+def stereo_readings(depth, valid, gt):
+    """(valid share, median |depth - GT| on valid pixels)."""
+    valid = valid.cpu().numpy()
+    err = np.abs(depth.cpu().numpy() - np.asarray(gt))[valid]
+    return float(valid.mean()), float(np.median(err))
+
+
+def stereo_cpu_vs_card(phase, params, left, right, baseline, **args):
+    """match_stereo and depth on the CPU and on the card on the same
+    pair, held equal bit for bit; returns the card's (depth, valid)."""
+    from tadataka_torch.vo.stereo import (
+        depth_from_disparity, estimate_depth_from_stereo, match_stereo)
+    fx = params.focal_length[0]
+    out = []
+    for device in ("cpu", "cuda"):
+        disp, valid = match_stereo(left.to(device), right.to(device), **args)
+        out.append((disp, valid,
+                    depth_from_disparity(disp, fx.to(device), baseline)))
+    for name, a, b in zip(("disparity", "valid", "depth"), *out):
+        assert torch.equal(a, b.cpu()), (phase, name)
+    depth, valid = estimate_depth_from_stereo(params, left, right, baseline,
+                                              **args)
+    assert torch.equal(depth.cpu(), out[0][2]) and torch.equal(
+        valid.cpu(), out[0][1])
+    log(phase, f"{tuple(left.shape)}, max_disparity "
+        f"{args['max_disparity']}: disparity, valid mask and depth "
+        "bit-equal on the CPU and the card")
+    return depth, valid
+
+
+def phase_stereo(smi):
+    """estimate_depth_from_stereo on the card at 480x640 and 128
+    disparities (bench.py's NewTsukuba setting) on phase 5's scene seen
+    by a rectified pair: bit-equal to the CPU, gated by STEREO_GATES on
+    the valid share and the depth error, timed by CUDA events."""
+    from tadataka_torch.probes.exp_ssd import cuda_times
+    from tadataka_torch.vo.stereo import estimate_depth_from_stereo
+    params, left, right, gt = stereo_pair()
+    args = dict(max_disparity=STEREO_MAX_DISPARITY, radius=STEREO_RADIUS)
+    depth, valid = stereo_cpu_vs_card("stereo", params, left, right,
+                                      STEREO_BASELINE, **args)
+    share, err = stereo_readings(depth, valid, gt)
+    log("stereo", f"valid share {share:.4f} (gate > "
+        f"{STEREO_GATES['valid']:.4f}), median |depth - GT| on valid pixels "
+        f"{err:.6f} m (gate < {STEREO_GATES['err']:.6f}; planes at 5.6-9.3 "
+        "m)")
+    assert share > STEREO_GATES["valid"] and err < STEREO_GATES["err"], (
+        share, err)
+    cam = type(params)(*(x.cuda() for x in params))
+    left_c, right_c = left.cuda(), right.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    times = cuda_times({"stereo": lambda: estimate_depth_from_stereo(
+        cam, left_c, right_c, STEREO_BASELINE, **args)}, repeats=10)
+    ms = statistics.median(times["stereo"])
+    log("stereo", f"estimate_depth_from_stereo 480x640, 128 disparities, "
+        f"r=3: {ms:.3f} ms (CUDA-event median of 10, L2 flushed; {smi}); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
+        " MiB")
+    return ms
+
+
+def write_new_tsukuba(root, n=3):
+    """A NewTsukuba tree of ``n`` 480x640 stereo frames (the stereo
+    phase's pair as RGBA PNGs through the port's codec, its left depth
+    as OpenCV XML for both sides, a camera track): returns the images
+    and depth written."""
+    from tadataka_torch.dataset import imsave
+    _, left, right, gt = stereo_pair()
+    gt = np.round(gt.numpy().astype(np.float64), 3)
+    images = []
+    for side, image in (("left", left), ("right", right)):
+        u8 = np.clip(image.numpy() * 255.0, 0, 255).astype(np.uint8)
+        rgba = np.stack([u8, u8, u8, np.full_like(u8, 255)], axis=-1)
+        images.append(rgba)
+        ill = Path(root, "illumination", "daylight", side)
+        xml = Path(root, "groundtruth", "depth_maps", side)
+        ill.mkdir(parents=True)
+        xml.mkdir(parents=True)
+        rows = "\n".join(" ".join(f"{v:.3f}" for v in row) for row in gt)
+        text = ("<opencv_storage><depth type_id=\"opencv-matrix\">"
+                f"<rows>{gt.shape[0]}</rows><cols>{gt.shape[1]}</cols>"
+                f"<dt>f</dt><data>{rows}</data></depth></opencv_storage>")
+        for i in range(n):
+            imsave(ill / f"frame_{i:05d}.png", rgba)
+            (xml / f"frame_{i:05d}.xml").write_text(text)
+    Path(root, "groundtruth", "camera_track.txt").write_text("\n".join(
+        f"{10.0 * i},0,0,0,{2.0 * i},0" for i in range(n)))
+    return images, gt
+
+
+def phase_euroc(smi):
+    """The port's export_euroc_scene at EuRoC's 480x752, 5 frames, read
+    back by EurocDataset (sensor.yaml through the port's reader, PNGs
+    through its codec): tests/realdata/test_euroc_e2e.py's checks, and
+    stereo depth of frame 0 at 64 disparities on the card, bit-equal to
+    the CPU and gated by EUROC_GATES against debug_gt.  Then a
+    NewTsukuba tree written with the port's codec and read back by
+    NewTsukubaDataset."""
+    from tadataka_torch.dataset import (
+        EurocDataset, NewTsukubaDataset, export_euroc_scene)
+    from tadataka_torch.probes.exp_ssd import cuda_times
+    from tadataka_torch.vo.stereo import estimate_depth_from_stereo
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        export_euroc_scene(root, n_frames=N_EUROC_FRAMES,
+                           image_shape=EUROC_SHAPE)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = EurocDataset(root)
+        f0, f1 = ds[0]
+        t_load = time.perf_counter() - t0
+        assert len(ds) == N_EUROC_FRAMES, len(ds)
+        assert tuple(f0.image.shape) == EUROC_SHAPE, f0.image.shape
+        assert torch.allclose(f0.pose.R, f1.pose.R, atol=1e-6)
+        coeffs = f0.camera_model.distortion_model.dist_coeffs
+        assert torch.allclose(coeffs[:2], torch.tensor([-0.08, 0.01]),
+                              atol=1e-7), coeffs
+        g0, g1, baseline = euroc_stereo(f0, f1)
+        assert abs(baseline - 0.11) <= 0.11 * 1e-5, baseline
+        gt = np.load(Path(root, "debug_gt", "0.npz"))["depth"]
+        params = f0.camera_model.camera_parameters
+        args = dict(max_disparity=EUROC_MAX_DISPARITY, radius=STEREO_RADIUS)
+        depth, valid = stereo_cpu_vs_card("euroc", params, g0, g1, baseline,
+                                          **args)
+    share, err = stereo_readings(depth, valid, gt)
+    cam = type(params)(*(x.cuda() for x in params))
+    g0, g1 = g0.cuda(), g1.cuda()
+    times = cuda_times({"euroc": lambda: estimate_depth_from_stereo(
+        cam, g0, g1, baseline, **args)}, repeats=10)
+    stereo_ms = statistics.median(times["euroc"])
+    log("euroc", f"{N_EUROC_FRAMES} frames at {EUROC_SHAPE[0]}x"
+        f"{EUROC_SHAPE[1]} exported in {t_export:.1f} s, loader and frame 0 "
+        f"{t_load:.2f} s; baseline {baseline:.6f} m, RadTan "
+        f"{coeffs.tolist()}; stereo depth of frame 0: valid share "
+        f"{share:.4f} (gate > {EUROC_GATES['valid']:.4f}), median |depth - "
+        f"GT| {err:.5f} m (gate < {EUROC_GATES['err']:.5f}), "
+        f"{stereo_ms:.3f} ms (CUDA-event median of 10, L2 flushed; {smi})")
+    assert share > EUROC_GATES["valid"] and err < EUROC_GATES["err"], (
+        share, err)
+    with tempfile.TemporaryDirectory() as root:
+        images, gt = write_new_tsukuba(root)
+        t0 = time.perf_counter()
+        ds = NewTsukubaDataset(root)
+        t_cache = time.perf_counter() - t0
+        left, right = ds[2]
+        assert len(ds) == 3
+        for frame, image in zip((left, right), images):
+            assert np.array_equal(frame.image.numpy(), image[..., :3])
+            assert np.array_equal(frame.depth_map.numpy(), gt)
+        offset = float(torch.linalg.norm(right.pose.t - left.pose.t))
+        assert abs(offset - NewTsukubaDataset.BASELINE) < 1e-4, offset
+    log("euroc", f"NewTsukuba tree of 3 480x640 frames (RGBA PNGs, XML "
+        f"depth) read back: images and depth equal, baseline {offset:.5f};"
+        f" first load with its caches {t_cache:.2f} s")
+
+
+def make_pipelined(shape, focal, device, **overrides):
+    from tadataka_torch.apps import PipelinedSemiDenseVO
+    from tadataka_torch.camera import CameraParameters
+    from tadataka_torch.vo.semi_dense import SemiDenseParams
+    H, W = shape
+    return PipelinedSemiDenseVO(
+        CameraParameters.create((focal, focal), (W / 2.0, H / 2.0)),
+        params=SemiDenseParams.create(2.0, 50.0, ref_step_size=0.002,
+                                      min_gradient=0.01),
+        devices=(device, device), **dict(SLICE_ARGS, **overrides))
+
+
+def run_pipelined(frames, vo, device):
+    """Drive the pipelined app over the frames (bootstrap with the true
+    pose) and flush; returns (states, per-frame ms, flush ms): state k is
+    frame k - 1's (frame 0's for k < 2), the last the flushed one."""
+    vo.initial_pose_fn = lambda image0, image1: (
+        frames[1].pose.inv() * frames[0].pose)
+    states, ms = [], []
+    for frame in frames + [None]:
+        sync(device)
+        t0 = time.perf_counter()
+        states.append(vo.estimate(frame) if frame is not None
+                      else vo.flush_map())
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return states, ms[:-1], ms[-1]
+
+
+def phase_pipelined(smi):
+    """PipelinedSemiDenseVO on the card: the CPU-against-card check of
+    every state at 120x160 over 5 frames (torch.equal; a missing stream
+    wait shows here), then phase 5's 12 frames at 480x640 with
+    ssd_search's count at 0 before and read after, gated by
+    PIPELINED_GATES on the flushed last frame, then the pipelined app
+    and SemiDenseVO on those frames in turns.  Returns the launches."""
+    from tadataka_torch.dataset import multi_plane_scene
+    from tadataka_torch.vo.semi_dense.sweep import ssd_search
+    c = PIPELINED_CHECK
+    ds = multi_plane_scene(c["frames"], c["shape"], (c["focal"],) * 2,
+                           trajectory(c["frames"], step=(0.12, 0.01, 0.1)))
+    frames = [ds[i] for i in range(c["frames"])]
+    runs = []
+    for device in ("cpu", "cuda"):
+        states, _, _ = run_pipelined(frames, make_pipelined(
+            c["shape"], c["focal"], device), device)
+        runs.append([[None if x is None else x.cpu() for x in (
+            s.pose_wc.R, s.pose_wc.t, s.depth_map, s.variance_map,
+            s.age_map, s.flag_map)] for s in states])
+    for k, (a, b) in enumerate(zip(*runs)):
+        assert all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(a, b)), f"state {k} differs"
+    log("pipelined", f"{c['shape'][0]}x{c['shape'][1]}, {c['frames']} "
+        f"frames + flush: all {len(runs[0])} states (pose, depth, "
+        "variance, age, flags) bit-equal on the CPU and the card")
+
+    ds = multi_plane_scene(N_FRAMES, VGA, (VGA_FOCAL, VGA_FOCAL),
+                           trajectory(N_FRAMES))
+    frames = [ds[i] for i in range(N_FRAMES)]
+    vo = make_pipelined(VGA, VGA_FOCAL, "cuda")
+    plans = []
+    plan_fn = vo._plan
+    vo._plan = lambda key_T: plans.append(plan_fn(key_T)) or plans[-1]
+    ssd_search.launches = 0
+    states, ms, flush_ms = run_pipelined(frames, vo, "cuda")
+    launches = ssd_search.launches
+    last = states[-1]
+    for x in (last.depth_map, last.variance_map, last.pose_wc.t):
+        assert bool(torch.isfinite(x).all())
+    success, err, cos = depth_and_pose_quality(last, frames[-1])
+    paths = [p.path for p in plans]
+    steady = ms[3:]
+    log("pipelined", f"480x640, {N_FRAMES} frames + flush: plans {paths}; "
+        f"ssd_search launches {launches}; per-frame ms: "
+        + ", ".join(f"{m:.1f}" for m in ms) + f", flush {flush_ms:.1f} "
+        f"({smi})")
+    log("pipelined", f"last frame (flushed): SUCCESS share {success:.3f} "
+        f"(gate > {PIPELINED_GATES['success']:.4f}), median |depth - GT| "
+        f"{err:.4f} (< {PIPELINED_GATES['err']:.4f}), cos(t_est, t_gt) "
+        f"{cos:.4f} (> {PIPELINED_GATES['cos']:.4f})")
+    assert paths == ["tent"] * (N_FRAMES - 1), paths
+    assert launches == N_FRAMES - 1, launches
+    check_gates((success, err, cos), PIPELINED_GATES)
+
+    rounds = {"pipelined": [], "semi_dense": []}
+    for _ in range(2):
+        _, ms, flush_ms = run_pipelined(frames, make_pipelined(
+            VGA, VGA_FOCAL, "cuda"), "cuda")
+        rounds["pipelined"].append(statistics.mean(ms[3:]))
+        vo = make_vo(VGA, VGA_FOCAL, "cuda")
+        _, ms = run_sequence(frames, vo, "cuda")
+        rounds["semi_dense"].append(statistics.mean(ms[3:]))
+    log("pipelined", "steady ms/frame (frames 3-11, mean) in turns, 2 "
+        "rounds: " + ", ".join(
+            f"{name} " + " / ".join(f"{m:.2f}" for m in v)
+            for name, v in rounds.items()) + f" ({smi})")
+    return launches
+
+
 def stage_times(phase, vo, prev, prev_image, refs, frame, device, plan):
     """Median ms of each stage of one steady-state frame, calling the
     port's stage functions on that frame's inputs; the update runs the
@@ -1605,6 +1925,9 @@ def main():
     del tent_searches, rect_searches
     phase_scatter()
     phase_app_gate()
+    phase_stereo(smi)
+    phase_euroc(smi)
+    launches += phase_pipelined(smi)
     from tadataka_torch.dataset import export_tum_scene
     with tempfile.TemporaryDirectory() as tum_root:
         t_export = time.perf_counter()
@@ -1618,7 +1941,8 @@ def main():
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s; "
         "ms/plain_ms below: ssd_search (its ring design) at S=48, the SSD "
         "probes at S=32, the gather probes on their scripts' inputs, "
-        "480x640; launches: the slice and rect phases (ssd_search), the "
+        "480x640; launches: the slice, rect and pipelined phases "
+        "(ssd_search), the "
         "probe runs (the probes); bound_ms at the data sheet's 3.35 TB/s "
         "and 67 TFLOP/s, ssd_search's at what its inputs need")
     print(smi)

@@ -3,9 +3,10 @@
 
 PNG is read and written by a codec of this module, on ``zlib`` and
 numpy alone, so the port needs no imaging package.  It handles the
-formats of the datasets: 8-bit gray, 8-bit RGB and 16-bit gray (stored
-big-endian, returned as native uint16), non-interlaced.  Reading undoes
-all five row filters; writing uses filter 0 (None) on every row.
+formats of the datasets: 8-bit gray, 8-bit RGB, 8-bit RGBA and 16-bit
+gray (stored big-endian, returned as native uint16), non-interlaced.
+Reading undoes all five row filters; writing uses filter 0 (None) on
+every row.
 """
 
 import struct
@@ -16,7 +17,7 @@ import numpy as np
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # (color type, bit depth) -> (channels, numpy dtype)
 _FORMATS = {(0, 8): (1, np.uint8), (2, 8): (3, np.uint8),
-            (0, 16): (1, np.dtype(">u2"))}
+            (6, 8): (4, np.uint8), (0, 16): (1, np.dtype(">u2"))}
 
 
 def _chunks(data):
@@ -78,8 +79,8 @@ def _unfilter(raw, height, stride, bpp):
 
 
 def imread(path):
-    """A PNG file as a numpy array: (H, W) uint8, (H, W, 3) uint8 or
-    (H, W) uint16."""
+    """A PNG file as a numpy array: (H, W) uint8, (H, W, 3) or (H, W, 4)
+    uint8, or (H, W) uint16."""
     with open(str(path), "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -113,12 +114,14 @@ def _chunk(kind, payload):
 
 
 def imsave(path, array):
-    """Write (H, W) uint8, (H, W, 3) uint8 or (H, W) uint16 as PNG."""
+    """Write (H, W) uint8, (H, W, 3) or (H, W, 4) uint8, or (H, W)
+    uint16 as PNG."""
     array = np.asarray(array)
     if array.dtype == np.uint8 and array.ndim == 2:
         color, depth = 0, 8
-    elif array.dtype == np.uint8 and array.ndim == 3 and array.shape[2] == 3:
-        color, depth = 2, 8
+    elif (array.dtype == np.uint8 and array.ndim == 3
+          and array.shape[2] in (3, 4)):
+        color, depth = (2 if array.shape[2] == 3 else 6), 8
     elif array.dtype == np.uint16 and array.ndim == 2:
         color, depth = 0, 16
         array = array.astype(">u2")

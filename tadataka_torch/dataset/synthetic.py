@@ -1,6 +1,6 @@
 """Synthetic textured-plane scenes with exact ground truth (counterpart of
-``render_plane_scene``, ``multi_plane_scene`` and ``export_tum_scene`` in
-``tadataka_tpu/dataset/synthetic.py``).
+``render_plane_scene``, ``multi_plane_scene``, ``export_tum_scene`` and
+``export_euroc_scene`` in ``tadataka_tpu/dataset/synthetic.py``).
 
 For a camera with pose T_wc (camera -> world), the ray [x, y, 1] meets
 the plane (origin p0, normal n) at depth s = ((p0 - o_w) . n) / (d_w . n),
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation
 
-from tadataka_torch.camera import CameraModel, CameraParameters
+from tadataka_torch.camera import CameraModel, CameraParameters, RadTan
 from tadataka_torch.core.coordinates import image_coordinates
 from tadataka_torch.core.pose import Pose
 from tadataka_torch.dataset.frame import Frame
@@ -166,3 +166,106 @@ def export_tum_scene(root, n_frames=4, which_freiburg=1,
     (root / "depth.txt").write_text("\n".join(lines_depth) + "\n")
     (root / "groundtruth.txt").write_text("\n".join(lines_gt) + "\n")
     return poses
+
+
+def _sharp_texture(X, Y):
+    """High-frequency texture of the EuRoC export: its rig's field of
+    view is narrow, so the default texture is too smooth at the pixel
+    scale for corner detection."""
+    v = (torch.sin(9.0 * X) * torch.cos(11.0 * Y)
+         + 0.6 * torch.sin(23.0 * X + 0.7) * torch.sin(19.0 * Y + 1.1)
+         + 0.4 * torch.cos(41.0 * X - 1.9) * torch.cos(37.0 * Y + 0.3)
+         + 0.3 * torch.sin(83.0 * X + 2.7) * torch.cos(71.0 * Y - 0.8))
+    return 0.5 + 0.2 * v
+
+
+EUROC_PLANES = [((0.0, 0.0, 2.5), (0.06, -0.04, -1.0)),
+                ((-0.5, 0.0, 1.9), (0.5, 0.0, -1.0)),
+                ((0.5, 0.3, 2.1), (-0.45, -0.25, -1.0))]
+
+
+def export_euroc_scene(root, n_frames=5, image_shape=(240, 320),
+                       baseline=0.11):
+    """Render a textured stereo sequence and write it to ``root`` in
+    EuRoC MAV format: cam0 / cam1 with ``sensor.yaml`` (intrinsics,
+    RadTan k1 k2 p1 p2, T_BS), ``data.csv`` listings of nanosecond-named
+    uint8 PNGs (the port's codec), and the body poses in
+    ``state_groundtruth_estimate0/data.csv`` (quaternions w, x, y, z).
+    Both cameras share one body -> camera rotation, so the pair stays a
+    lateral stereo rig with ``baseline`` along the camera x axis.  The
+    ground-truth (image, depth) of every cam0 frame goes to
+    ``root/debug_gt/<i>.npz`` (not part of the format).  The rig, the
+    three planes, the texture and the trajectory are the JAX package's.
+    Returns the body -> world Poses."""
+    H, W = image_shape
+    root = Path(root)
+    focal = (0.7 * W, 0.7 * W)
+    offset = (W / 2.0 + 3.0, H / 2.0 - 2.0)
+    dist = [-0.08, 0.01, 5e-5, 1e-5]
+
+    R_bc = Rotation.from_rotvec([0.02, -0.03, 0.01]).as_matrix()
+    T_bc0 = np.eye(4)
+    T_bc0[:3, :3] = R_bc
+    T_bc0[:3, 3] = [0.015, -0.01, 0.005]
+    T_bc1 = T_bc0.copy()
+    T_bc1[:3, 3] = T_bc0[:3, 3] + R_bc @ np.array([baseline, 0.0, 0.0])
+    cam_model = CameraModel.create(CameraParameters.create(focal, offset),
+                                   RadTan.create(dist))
+
+    def write_cam(idx, T_bc):
+        d = root / f"cam{idx}"
+        (d / "data").mkdir(parents=True, exist_ok=True)
+        (d / "sensor.yaml").write_text(
+            "sensor_type: camera\n"
+            f"intrinsics: [{focal[0]}, {focal[1]}, {offset[0]}, "
+            f"{offset[1]}]\n"
+            "distortion_model: radial-tangential\n"
+            f"distortion_coefficients: [{dist[0]}, {dist[1]}, {dist[2]}, "
+            f"{dist[3]}]\n"
+            "T_BS:\n"
+            "  rows: 4\n  cols: 4\n"
+            "  data: [" + ", ".join(f"{v:.9f}" for v in T_bc.ravel())
+            + "]\n")
+        return d
+
+    d0 = write_cam(0, T_bc0)
+    d1 = write_cam(1, T_bc1)
+    gt_dir = root / "debug_gt"
+    gt_dir.mkdir(exist_ok=True)
+    (root / "state_groundtruth_estimate0").mkdir(exist_ok=True)
+
+    body_poses = [Pose.from_rotvec(
+        torch.tensor([0.004 * i, 0.006 * i, 0.002 * i]),
+        torch.tensor([0.04 * i, 0.015 * i, 0.01 * i]))
+        for i in range(n_frames)]
+    rows0, rows1, rows_gt = [], [], []
+    for i, pose_wb in enumerate(body_poses):
+        ts = 1403636579763555584 + i * 50000000
+        T_wb = np.eye(4)
+        T_wb[:3, :3] = pose_wb.R.numpy()
+        T_wb[:3, 3] = pose_wb.t.numpy()
+        for cam_i, (d, T_bc, rows) in enumerate(
+                [(d0, T_bc0, rows0), (d1, T_bc1, rows1)]):
+            T_wc = T_wb @ T_bc
+            pose_wc = Pose(torch.from_numpy(T_wc[:3, :3].astype(np.float32)),
+                           torch.from_numpy(T_wc[:3, 3].astype(np.float32)))
+            image, depth = render_plane_scene(
+                cam_model, pose_wc, image_shape, texture=_sharp_texture,
+                planes=EUROC_PLANES)
+            u8 = np.clip(image.numpy() * 255.0, 0, 255).astype(np.uint8)
+            imsave(d / "data" / f"{ts}.png", u8)
+            rows.append(f"{ts},{ts}.png")
+            if cam_i == 0:
+                np.savez(gt_dir / f"{i}.npz", image=image.numpy(),
+                         depth=depth.numpy())
+        q = Rotation.from_matrix(T_wb[:3, :3]).as_quat()      # x y z w
+        p = T_wb[:3, 3]
+        rows_gt.append(f"{ts},{p[0]},{p[1]},{p[2]},{q[3]},{q[0]},{q[1]},"
+                       f"{q[2]},0,0,0,0,0,0,0,0,0")
+    for d, rows in ((d0, rows0), (d1, rows1)):
+        (d / "data.csv").write_text(
+            "#timestamp [ns],filename\n" + "\n".join(rows) + "\n")
+    (root / "state_groundtruth_estimate0" / "data.csv").write_text(
+        "#timestamp,px,py,pz,qw,qx,qy,qz,...\n" + "\n".join(rows_gt)
+        + "\n")
+    return body_poses

@@ -8,7 +8,9 @@ normalized-SSD match of the five-sample key patch, triangulation, the
 variance model and the failure flags.  It is plain PyTorch on (S, N)
 sample tensors (N pixels): on the card its per-pixel gathers are cheap.
 The helpers (``pixel_geometry_map``, ``calc_key_epipole``, ...) are
-shared with the plane sweeps.
+shared with the plane sweeps.  ``estimate_pixel`` runs the same pieces
+on one pixel, and ``estimate_debug`` is the one-pixel entry that drives
+each failure flag.
 """
 
 from typing import NamedTuple
@@ -340,8 +342,86 @@ def _pixel_estimate(geo, key_int, ref_int, grad_x, grad_y, prior_inv,
             torch.where(success, variance, prior_var), flag)
 
 
+def _gradient_at(grad_map, us_x, us_y):
+    """``grad_map`` at the pixel of each (x, y), truncated and clipped to
+    the image."""
+    H, W = grad_map.shape
+    ux = torch.clamp(us_x.to(torch.int64), 0, W - 1)
+    uy = torch.clamp(us_y.to(torch.int64), 0, H - 1)
+    return grad_map.reshape(-1)[uy * W + ux]
+
+
+def estimate_pixel(u_key, prior_inv_depth, prior_variance, T_rk, e_key,
+                   key_focal, key_offset, key_image, ref_focal, ref_offset,
+                   ref_images, ref_index, grad_x_map, grad_y_map, params,
+                   n_ref_samples):
+    """One pixel's inverse-depth update, by the scattered estimator's
+    pieces on a map of one pixel.  Returns 0-d (inv_depth, variance,
+    flag) before the prior checks.
+
+    ``u_key`` (2,) the (x, y) pixel, ``T_rk`` (4, 4), ``e_key`` (2,),
+    ``ref_images`` the (R, H, W) stack and ``ref_index`` this pixel's
+    frame in it."""
+    f32 = u_key.dtype
+    device = u_key.device
+    us_x, us_y = u_key[0:1], u_key[1:2]
+    prior_inv = prior_inv_depth.reshape(1)
+    prior_var = prior_variance.reshape(1)
+    geo = pixel_geometry_map(
+        us_x, us_y, prior_inv, prior_var, T_rk, e_key, key_focal,
+        key_offset, tuple(key_image.shape), ref_focal, ref_offset,
+        tuple(ref_images.shape[1:]), params, n_ref_samples)
+    steps = torch.arange(-(N_KEY_SAMPLES // 2), N_KEY_SAMPLES // 2 + 1,
+                         dtype=f32, device=device)[:, None]
+    us_key_x, us_key_y = _key_coords(geo, steps, key_focal, key_offset)
+    idx = torch.arange(n_ref_samples, dtype=f32, device=device)[:, None]
+    us_ref_x, us_ref_y = _ref_coords(geo, idx, ref_focal[0], ref_focal[1],
+                                     ref_offset[0], ref_offset[1])
+    key_int = _interp_image_xy(key_image, us_key_x, us_key_y)
+    ref_int = _interp_stack_xy(
+        ref_images, torch.as_tensor(ref_index, device=device), us_ref_x,
+        us_ref_y)
+    R = [[T_rk[i, j] for j in range(3)] for i in range(3)]
+    t = [T_rk[i, 3] for i in range(3)]
+    inv_d, var, flag = _pixel_estimate(
+        geo, key_int, ref_int, _gradient_at(grad_x_map, us_x, us_y),
+        _gradient_at(grad_y_map, us_x, us_y), prior_inv, prior_var, R, t,
+        params)
+    return inv_d[0], var[0], flag[0]
+
+
+def estimate_debug(u_key, prior_depth, prior_variance, keyframe, refframe,
+                   params, n_ref_samples=DEFAULT_N_REF_SAMPLES):
+    """Single-pixel debug entry: (depth, variance, flag) of the (x, y)
+    pixel ``u_key`` against one refframe, from a plain prior depth and
+    variance.  A prior that fails its checks gives its own flag and is
+    returned unchanged, ahead of every estimation flag."""
+    f32 = keyframe.image.dtype
+    device = keyframe.image.device
+    T_wk = keyframe.transform_wf
+    T_wr = refframe.transform_wf
+    T_rk = matmul_small(inv_motion_matrix(T_wr), T_wk)
+    e_key = calc_key_epipole(T_wk, T_wr)
+    u = torch.as_tensor(u_key, dtype=f32, device=device)
+    prior_inv = safe_invert(torch.as_tensor(prior_depth, dtype=f32,
+                                            device=device))
+    prior_var = torch.as_tensor(prior_variance, dtype=f32, device=device)
+    inv_d, var, flag = estimate_pixel(
+        u, prior_inv, prior_var, T_rk, e_key, keyframe.focal_length,
+        keyframe.offset, keyframe.image, refframe.focal_length,
+        refframe.offset, refframe.image[None], 0, sobel_x(keyframe.image),
+        sobel_y(keyframe.image), params, n_ref_samples)
+    prior_flag = check_args_flag(prior_inv, prior_var, params.min_inv_depth,
+                                 params.max_inv_depth)
+    prior_bad = prior_flag != int(Flag.SUCCESS)
+    flag = torch.where(prior_bad, prior_flag, flag)
+    inv_d = torch.where(prior_bad, prior_inv, inv_d)
+    var = torch.where(prior_bad, prior_var, var)
+    return safe_invert(inv_d), var, flag
+
+
 def update_depth(keyframe, refframes, age_map, prior_depth, prior_variance,
-                 params, n_ref_samples=DEFAULT_N_REF_SAMPLES,
+                 params, n_ref_samples=DEFAULT_N_REF_SAMPLES, row_offset=0,
                  fuse_prior=False):
     """Full-map inverse-depth update by the scattered estimator.
 
@@ -349,6 +429,11 @@ def update_depth(keyframe, refframes, age_map, prior_depth, prior_variance,
     selects refframe R - age.  Returns (depth_map, variance_map,
     flag_map).  With ``fuse_prior`` a new observation is fused with the
     prior (the LSD-SLAM depth filter) instead of replacing it.
+
+    The prior and age maps may be a block of rows of the image;
+    ``row_offset`` (an int or a 0-d tensor) is the block's first row, so
+    pixel coordinates stay those of the whole image.  The key and ref
+    images are always whole.
     """
     H, W = prior_depth.shape
     R_frames = refframes.image.shape[0]
@@ -361,7 +446,11 @@ def update_depth(keyframe, refframes, age_map, prior_depth, prior_variance,
     Y, X = torch.meshgrid(torch.arange(H, dtype=f32, device=device),
                           torch.arange(W, dtype=f32, device=device),
                           indexing="ij")
-    us_x, us_y = X.ravel(), Y.ravel()
+    us_x = X.ravel()
+    # a Python offset is added as a scalar: no copy to the device
+    us_y = Y.ravel() + (row_offset.to(device=device, dtype=f32)
+                        if isinstance(row_offset, torch.Tensor)
+                        else float(row_offset))
     age = age_map.ravel().to(torch.int32)
     prior_v = prior_variance.ravel().to(f32)
     prior_inv = safe_invert(prior_depth.ravel().to(f32))
@@ -404,8 +493,10 @@ def update_depth(keyframe, refframes, age_map, prior_depth, prior_variance,
     R = [[T_pix[:, i, j] for j in range(3)] for i in range(3)]
     t = [T_pix[:, i, 3] for i in range(3)]
     inv_d, var, flag = _pixel_estimate(
-        geo, key_int, ref_int, sobel_x(keyframe.image).ravel(),
-        sobel_y(keyframe.image).ravel(), prior_inv, prior_v, R, t, params)
+        geo, key_int, ref_int,
+        _gradient_at(sobel_x(keyframe.image), us_x, us_y),
+        _gradient_at(sobel_y(keyframe.image), us_x, us_y), prior_inv,
+        prior_v, R, t, params)
 
     prior_flag = check_args_flag(prior_inv, prior_v, params.min_inv_depth,
                                  params.max_inv_depth)

@@ -21,3 +21,12 @@ def make_frame(camera_params, image, transform_wf):
 
 def stack_frames(frames):
     return SemiDenseFrame(*(torch.stack(fields) for fields in zip(*frames)))
+
+
+def normalize(frame, us):
+    """Pixel coords (..., 2) of ``frame`` -> its normalized image plane."""
+    return (us - frame.offset) / frame.focal_length
+
+
+def unnormalize(frame, xs):
+    return xs * frame.focal_length + frame.offset

@@ -249,13 +249,28 @@ def test_renderer_matches():
 
 
 def test_port_runs_without_jax():
-    """``import tadataka_torch`` and a CPU estimate with jax unimportable."""
+    """``import tadataka_torch`` and CPU runs of its entry points with
+    jax, the JAX package, PyYAML and PIL unimportable: a SemiDenseVO
+    estimate, a PipelinedSemiDenseVO sequence, stereo depth, and the
+    EuRoC and NewTsukuba loaders on trees the port writes."""
     script = textwrap.dedent("""
         import sys
-        sys.modules["jax"] = None
-        sys.modules["tadataka_tpu"] = None
+        import tempfile
+        from pathlib import Path
+        for name in ("jax", "tadataka_tpu", "yaml", "PIL"):
+            sys.modules[name] = None
+        import numpy as np
         import torch
-        from tadataka_torch.apps import SemiDenseVO
+        import tadataka_torch.camera.io
+        import tadataka_torch.camera.table
+        import tadataka_torch.dataset.collaborative
+        import tadataka_torch.dataset.points
+        from tadataka_torch.apps import PipelinedSemiDenseVO, SemiDenseVO
+        from tadataka_torch.dataset import (
+            EurocDataset, NewTsukubaDataset, export_euroc_scene, imsave)
+        from tadataka_torch.vo.semi_dense import (
+            estimate_debug, fusion_maps, update_depth)
+        from tadataka_torch.vo.stereo import estimate_depth_from_stereo
         from tadataka_torch.camera import CameraParameters
         from tadataka_torch.core.pose import Pose
         from tadataka_torch.dataset import multi_plane_scene
@@ -275,7 +290,47 @@ def test_port_runs_without_jax():
         for i in range(3):
             state = vo.estimate(ds[i])
         assert bool(torch.isfinite(state.depth_map).all())
-        assert not any(m == "jax" or m.startswith(("jax.", "tadataka_tpu"))
+
+        pipelined = PipelinedSemiDenseVO(
+            CameraParameters.create((40.0, 40.0), (28.0, 20.0)),
+            params=SemiDenseParams.create(2.0, 50.0, ref_step_size=0.002,
+                                          min_gradient=0.01),
+            default_depth=8.0, default_variance=1.0, uncertainty_bias=0.01,
+            depth_range=(2.0, 50.0), n_coarse_to_fine=3, history_size=3,
+            devices=("cpu", "cpu"),
+            initial_pose_fn=lambda a, b: ds[1].pose.inv() * ds[0].pose)
+        for i in range(3):
+            pipelined.estimate(ds[i])
+        state = pipelined.flush_map()
+        assert bool(torch.isfinite(state.depth_map).all())
+
+        params = CameraParameters.create((40.0, 40.0), (28.0, 20.0))
+        left = ds[0].image
+        right = torch.roll(left, 6, dims=1)
+        depth, valid = estimate_depth_from_stereo(
+            params, left, right, 0.5, max_disparity=16, device="cpu")
+        assert depth.shape == valid.shape == left.shape
+
+        with tempfile.TemporaryDirectory() as root:
+            export_euroc_scene(Path(root, "euroc"), n_frames=2,
+                               image_shape=(24, 32))
+            f0, f1 = EurocDataset(Path(root, "euroc"))[1]
+            assert f0.image.shape == (24, 32)
+            tsukuba = Path(root, "tsukuba")
+            for d in ("groundtruth", "illumination/daylight/left",
+                      "illumination/daylight/right"):
+                Path(tsukuba, d).mkdir(parents=True)
+            Path(tsukuba, "groundtruth", "camera_track.txt").write_text(
+                "0,0,0,0,0,0\\n")
+            rgba = np.zeros((6, 8, 4), np.uint8)
+            for side in ("left", "right"):
+                imsave(Path(tsukuba, "illumination/daylight", side,
+                            "frame_00000.png"), rgba)
+            left_frame, _ = NewTsukubaDataset(tsukuba)[0]
+            assert left_frame.image.shape == (6, 8, 3)
+        assert not any(m in ("jax", "yaml", "PIL")
+                       or m.startswith(("jax.", "tadataka_tpu", "yaml.",
+                                        "PIL."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
     """)

@@ -258,7 +258,8 @@ def test_png_codec_against_pil(tmp_path, fmt):
 def test_png_codec_refuses(tmp_path):
     with pytest.raises(ValueError, match="unsupported array"):
         imsave(tmp_path / "x.png", np.zeros((4, 4), np.float32))
-    Image.fromarray(np.zeros((4, 4, 4), np.uint8)).save(tmp_path / "a.png")
+    Image.fromarray(np.zeros((4, 4, 2), np.uint8), mode="LA").save(
+        tmp_path / "a.png")
     with pytest.raises(ValueError, match="unsupported PNG"):
         imread(tmp_path / "a.png")
     (tmp_path / "b.png").write_bytes(b"GIF89a")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile a slice of chip_smoke.py on one CUDA card.
 
-    python3 tools/profile_slice.py [--path tent|rect|scatter|dvo]
+    python3 tools/profile_slice.py [--path tent|rect|scatter|dvo|pipelined]
                                    [--profiled 3]
 
 Drives the sequence of one of chip_smoke.py's 480x640 phases on the
@@ -11,8 +11,12 @@ sweep), ``rect`` the rect phase (10 frames of the lateral trajectory,
 the rectified sweep), ``scatter`` the scatter phase (5 frames,
 ``depth_update="scatter"``); through ``DvoTrajectory.estimate``,
 ``dvo`` the dvo phase (the 8-frame freiburg1 TUM scene, exported and
-read back).  It records the last ``--profiled`` frames with
-``torch.profiler``.
+read back); through ``PipelinedSemiDenseVO.estimate``, ``pipelined``
+phase 5's frames as the pipelined phase drives them (tracker and mapper
+on two streams).  It records the last ``--profiled`` frames with
+``torch.profiler``; for ``pipelined`` it also prints each stream's busy
+time and the time both streams ran kernels at once, from the kernels'
+stream ids in the profiler's trace.
 Prints, per profiled frame: the wall time, the device-busy time (the
 union of kernel intervals), the kernels launched and the DVO
 Gauss-Newton iterations (``aten::linalg_solve`` calls); then the
@@ -21,6 +25,7 @@ so its wall times are longer than chip_smoke's.
 """
 
 import argparse
+import json
 import sys
 import tempfile
 import time
@@ -48,8 +53,8 @@ def busy_us(intervals):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("tent", "rect", "scatter", "dvo"),
-                        default="tent")
+    parser.add_argument("--path", choices=("tent", "rect", "scatter", "dvo",
+                                           "pipelined"), default="tent")
     parser.add_argument("--profiled", type=int, default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -57,6 +62,8 @@ def main():
     with tempfile.TemporaryDirectory() as tum_root:
         if args.path == "dvo":
             frames, vo = dvo_sequence(tum_root)
+        elif args.path == "pipelined":
+            frames, vo = pipelined_sequence()
         else:
             frames, vo = slice_sequence(args.path)
         profile_frames(args, frames, vo)
@@ -70,6 +77,41 @@ def dvo_sequence(tum_root):
     ds = TumRgbdDataset(tum_root, which_freiburg=1)
     frames = [ds[i] for i in range(len(ds))]
     return frames, DvoTrajectory(ds.camera_model, weights="huber")
+
+
+def pipelined_sequence():
+    n = chip_smoke.N_FRAMES
+    ds = multi_plane_scene(n, chip_smoke.VGA,
+                           (chip_smoke.VGA_FOCAL, chip_smoke.VGA_FOCAL),
+                           chip_smoke.trajectory(n))
+    frames = [ds[i] for i in range(n)]
+    vo = chip_smoke.make_pipelined(chip_smoke.VGA, chip_smoke.VGA_FOCAL,
+                                   "cuda")
+    vo.initial_pose_fn = lambda image0, image1: (
+        frames[1].pose.inv() * frames[0].pose)
+    return frames, vo
+
+
+def stream_overlap(prof):
+    """Per CUDA stream, the busy time (union of its kernels' intervals),
+    and the time kernels of two streams ran at once, in us, from the
+    stream ids of the kernels in the profiler's trace."""
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d, "trace.json")
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    by_stream, mapper = {}, set()
+    for e in trace.get("traceEvents", []):
+        if str(e.get("cat", "")).lower() == "kernel" and "dur" in e:
+            stream = e.get("args", {}).get("stream")
+            by_stream.setdefault(stream, []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            if "ssd_search" in e.get("name", ""):
+                mapper.add(stream)
+    busy = {f"{s}{' (mapper: ssd_search)' if s in mapper else ''}":
+            busy_us(v) for s, v in by_stream.items()}
+    union = busy_us([iv for v in by_stream.values() for iv in v])
+    return busy, sum(busy.values()) - union
 
 
 def slice_sequence(path):
@@ -138,6 +180,13 @@ def profile_frames(args, frames, vo):
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"[profile] {t / 1e3:9.3f} ms {c:6d}x  {name[:100]}")
+    if args.path == "pipelined":
+        busy, both = stream_overlap(prof)
+        print("[profile] pipelined, busy per stream: " + ", ".join(
+            f"stream {s} {t / 1e3:.2f} ms" for s, t in sorted(
+                busy.items(), key=lambda kv: str(kv[0])))
+              + f"; two streams at once {both / 1e3:.3f} ms of "
+              f"{wall / 1e3:.2f} ms wall", flush=True)
 
 
 if __name__ == "__main__":

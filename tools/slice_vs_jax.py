@@ -5,11 +5,16 @@ the CPU, at a reduced size; prints each app's quality per frame.
     JAX_PLATFORMS=cpu python tools/slice_vs_jax.py --scale 4
     JAX_PLATFORMS=cpu python tools/slice_vs_jax.py --scale 2 --init gt
     JAX_PLATFORMS=cpu python tools/slice_vs_jax.py --trajectory lateral
+    JAX_PLATFORMS=cpu python tools/slice_vs_jax.py --app pipelined
 
 The trajectory, parameters and frame count are those of phase 5 (the
 homography sweep), or with ``--trajectory lateral`` those of the rect
 phase (chip_smoke.LATERAL, N_RECT_FRAMES frames, the host pose chain
-drained only at the end).  ``--scale k``
+drained only at the end).  ``--app pipelined`` runs each package's
+``PipelinedSemiDenseVO`` (tracker and mapper on one device) instead of
+``SemiDenseVO``, as chip_smoke's pipelined phase does; its state lags
+by a frame, so frame k is read after frame k + 1 (the last after
+``flush_map``).  ``--scale k``
 divides the image size (480x640) and the focal length (480) by k, which
 keeps the field of view and every angle of the scene; only the pixel
 pitch changes.  ``--init gt`` starts both maps at the true depth of
@@ -30,13 +35,19 @@ sys.path.insert(0, str(ROOT))
 
 import jax.numpy as jnp  # noqa: E402
 
+import jax  # noqa: E402
+
+from tadataka_tpu.apps import PipelinedSemiDenseVO as JPipelined  # noqa
 from tadataka_tpu.apps import SemiDenseVO as JSemiDenseVO  # noqa: E402
 from tadataka_tpu.camera import CameraParameters as JCameraParameters  # noqa
 from tadataka_tpu.core.pose import Pose as JPose  # noqa: E402
 from tadataka_tpu.vo.semi_dense import SemiDenseParams as JParams  # noqa
 
 import chip_smoke  # noqa: E402
+from tadataka_torch.apps import PipelinedSemiDenseVO  # noqa: E402
+from tadataka_torch.camera import CameraParameters  # noqa: E402
 from tadataka_torch.dataset import multi_plane_scene  # noqa: E402
+from tadataka_torch.vo.semi_dense import SemiDenseParams  # noqa: E402
 
 
 def quality(depth, flags, t_est, frame):
@@ -56,7 +67,13 @@ def main():
     parser.add_argument("--init", choices=("random", "gt"), default="random")
     parser.add_argument("--trajectory", choices=("slice", "lateral"),
                         default="slice")
+    parser.add_argument("--app", choices=("semi_dense", "pipelined"),
+                        default="semi_dense")
     args = parser.parse_args()
+    if args.app == "pipelined" and (args.init == "gt"
+                                    or args.trajectory == "lateral"):
+        parser.error("--app pipelined takes the slice trajectory and the "
+                     "random initial map")
     H, W = (n // args.scale for n in chip_smoke.VGA)
     focal = chip_smoke.VGA_FOCAL / args.scale
     if args.trajectory == "lateral":
@@ -74,13 +91,22 @@ def main():
 
     va = chip_smoke.SLICE_ARGS
     jlog, log = chip_smoke.PlanLog(), chip_smoke.PlanLog()
-    jvo = JSemiDenseVO(
-        JCameraParameters.create((focal, focal), (W / 2.0, H / 2.0)),
-        params=JParams.create(2.0, 50.0, ref_step_size=0.002,
-                              min_gradient=0.01),
-        metrics=jlog, **va, **init)
+    jcam = JCameraParameters.create((focal, focal), (W / 2.0, H / 2.0))
+    jparams = JParams.create(2.0, 50.0, ref_step_size=0.002,
+                             min_gradient=0.01)
     T10 = frames[1].pose.inv() * frames[0].pose
     jT10 = JPose(jnp.asarray(T10.R.numpy()), jnp.asarray(T10.t.numpy()))
+    if args.app == "pipelined":
+        cpu = jax.devices()[0]
+        jvo = JPipelined(jcam, params=jparams, devices=(cpu, cpu), **va)
+        vo = PipelinedSemiDenseVO(
+            CameraParameters.create((focal, focal), (W / 2.0, H / 2.0)),
+            params=SemiDenseParams.create(2.0, 50.0, ref_step_size=0.002,
+                                          min_gradient=0.01),
+            devices=("cpu", "cpu"), **va)
+        return run_pipelined(args, jvo, vo, frames, images, jT10, T10,
+                             (H, W), focal)
+    jvo = JSemiDenseVO(jcam, params=jparams, metrics=jlog, **va, **init)
     jvo.initial_pose_fn = lambda image0, image1: jT10
     vo = chip_smoke.make_vo((H, W), focal, "cpu", metrics=log, **init)
     vo.initial_pose_fn = lambda image0, image1: T10
@@ -97,27 +123,52 @@ def main():
         p = vo.estimate(image)
         if k == 0:
             continue
-        jq = quality(np.asarray(j.depth_map), np.asarray(j.flag_map),
-                     np.asarray(j.pose_wc.t), frames[k])
-        pq = quality(p.depth_map.numpy(), p.flag_map.numpy(),
-                     p.pose_wc.t.numpy(), frames[k])
-        pose_d = max(float(np.abs(np.asarray(j.pose_wc.R)
-                                  - p.pose_wc.R.numpy()).max()),
-                     float(np.abs(np.asarray(j.pose_wc.t)
-                                  - p.pose_wc.t.numpy()).max()))
-        flags_agree = float(np.mean(np.asarray(j.flag_map)
-                                    == p.flag_map.numpy()))
-        plan = (jlog.frames[-1][1]["plan_path"],
-                log.frames[-1][1]["plan_path"])
-        last = dict(frame=k, jax=jq, port=pq, pose_d=pose_d,
-                    flags_agree=flags_agree)
-        print(f"frame {k:2d} plan {plan[0]}/{plan[1]}: "
-              f"jax SUCCESS {jq['success']:.3f} err {jq['median_err']:.4f} "
-              f"cos {jq['cos']:.4f} | port SUCCESS {pq['success']:.3f} err "
-              f"{pq['median_err']:.4f} cos {pq['cos']:.4f} | pose d "
-              f"{pose_d:.3g}, flags agree {flags_agree:.4f}", flush=True)
+        last = compare(f"frame {k:2d} plan {jlog.frames[-1][1]['plan_path']}"
+                       f"/{log.frames[-1][1]['plan_path']}", k, j, p,
+                       frames[k])
     print(json.dumps(dict(trajectory=args.trajectory, shape=[H, W],
                           focal=focal, init=args.init, last=last)))
+
+
+def compare(label, k, j, p, frame):
+    """Both apps' readings of frame k; prints them after ``label``,
+    returns them."""
+    jq = quality(np.asarray(j.depth_map), np.asarray(j.flag_map),
+                 np.asarray(j.pose_wc.t), frame)
+    pq = quality(p.depth_map.numpy(), p.flag_map.numpy(),
+                 p.pose_wc.t.numpy(), frame)
+    pose_d = max(float(np.abs(np.asarray(j.pose_wc.R)
+                              - p.pose_wc.R.numpy()).max()),
+                 float(np.abs(np.asarray(j.pose_wc.t)
+                              - p.pose_wc.t.numpy()).max()))
+    flags_agree = float(np.mean(np.asarray(j.flag_map) == p.flag_map.numpy()))
+    print(f"{label}: jax SUCCESS {jq['success']:.3f} err "
+          f"{jq['median_err']:.4f} cos {jq['cos']:.4f} | port SUCCESS "
+          f"{pq['success']:.3f} err {pq['median_err']:.4f} cos "
+          f"{pq['cos']:.4f} | pose d {pose_d:.3g}, flags agree "
+          f"{flags_agree:.4f}", flush=True)
+    return dict(frame=k, jax=jq, port=pq, pose_d=pose_d,
+                flags_agree=flags_agree)
+
+
+def run_pipelined(args, jvo, vo, frames, images, jT10, T10, shape, focal):
+    """Both pipelined apps over the frames; frame k is read after frame k
+    + 1 is given (the map lags by one frame), the last after flush_map."""
+    jvo.initial_pose_fn = lambda image0, image1: jT10
+    vo.initial_pose_fn = lambda image0, image1: T10
+    n = len(frames)
+    print(f"pipelined app, slice trajectory, {shape[0]}x{shape[1]}, focal "
+          f"{focal}, {n} frames, init random", flush=True)
+    for k, image in enumerate(images):
+        j = jvo.estimate(image)
+        p = vo.estimate(image)
+        if k >= 2:
+            compare(f"frame {k - 1:2d}", k - 1, j, p, frames[k - 1])
+    last = compare(f"frame {n - 1:2d}", n - 1, jvo.flush_map(),
+                   vo.flush_map(), frames[-1])
+    print(json.dumps(dict(app="pipelined", trajectory="slice",
+                          shape=list(shape), focal=focal, init="random",
+                          last=last)))
 
 
 if __name__ == "__main__":
