@@ -1,6 +1,7 @@
 """Image gradients (counterpart of ``tadataka_tpu/core/gradients.py``):
-zero-border Sobel and np.gradient, both as shifted adds.  No convolution:
-a float32 convolution on the card would run through cuDNN in TF32."""
+Sobel (zero or edge border) and np.gradient, both as shifted adds.  No
+convolution: a float32 convolution on the card would run through cuDNN
+in TF32."""
 
 import torch
 import torch.nn.functional as F
@@ -17,14 +18,24 @@ def _sobel_y_valid(image):
     return dy[:, :-2] + 2.0 * dy[:, 1:-1] + dy[:, 2:]
 
 
-def sobel_x(image):
-    """d/dx Sobel (unnormalized, 4x the central difference), zero border
-    (the JAX package's ``mode="zero"``)."""
-    return F.pad(_sobel_x_valid(image), (1, 1, 1, 1))
+def sobel_x(image, mode="zero"):
+    """d/dx Sobel (unnormalized, 4x the central difference).  mode="zero":
+    zero border; mode="reflect": scipy.ndimage's border (the edge sample
+    repeated)."""
+    return _apply_sobel(image, _sobel_x_valid, mode)
 
 
-def sobel_y(image):
-    return F.pad(_sobel_y_valid(image), (1, 1, 1, 1))
+def sobel_y(image, mode="zero"):
+    return _apply_sobel(image, _sobel_y_valid, mode)
+
+
+def _apply_sobel(image, valid_fn, mode):
+    if mode == "zero":
+        return F.pad(valid_fn(image), (1, 1, 1, 1))
+    if mode == "reflect":
+        padded = F.pad(image[None, None], (1, 1, 1, 1), mode="replicate")
+        return valid_fn(padded[0, 0])
+    raise ValueError(f"unknown border mode {mode!r}")
 
 
 def _central_diff(a, dim):

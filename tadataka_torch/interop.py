@@ -14,6 +14,8 @@ from tadataka_torch.apps.semi_dense_vo import SemiDenseVOState
 from tadataka_torch.camera import (
     FOV, CameraModel, CameraParameters, NoDistortion, RadTan)
 from tadataka_torch.core.pose import Pose
+from tadataka_torch.features.detector import Features
+from tadataka_torch.features.matching import Matches
 from tadataka_torch.vo.semi_dense.frame import SemiDenseFrame
 from tadataka_torch.vo.semi_dense.params import SemiDenseParams
 
@@ -62,6 +64,26 @@ def frame_from_numpy(focal_length, offset, image, transform_wf,
 
 def pose_from_numpy(R, t, device="cpu"):
     return Pose(tensor(R, device), tensor(t, device))
+
+
+def features_from_numpy(keypoints, descriptors, mask, device="cpu"):
+    """Features from keypoints (K, 2), +-1 descriptors (K, D) and a
+    mask (K,)."""
+    return Features(tensor(keypoints, device), tensor(descriptors, device),
+                    tensor(mask, device, torch.bool))
+
+
+def matches_from_numpy(indices, mask, device="cpu"):
+    """Matches from index pairs (K, 2) and a mask (K,)."""
+    return Matches(tensor(indices, device, torch.int64),
+                   tensor(mask, device, torch.bool))
+
+
+def poses_from_numpy(poses, device="cpu"):
+    """A list of Pose from a list of objects with fields R and t (the JAX
+    package's poses, world -> camera as its VO keeps them).  Map points
+    need no conversion: both packages keep them as host arrays."""
+    return [pose_from_numpy(p.R, p.t, device) for p in poses]
 
 
 def state_from_numpy(pose_R, pose_t, depth_map, variance_map, age_map,
