@@ -1920,13 +1920,13 @@ def dvo_stage_times(vo, frame0, frame1):
 # cosine (in the first camera's frame) over 0.95, as
 # tests/vo/test_feature_based.py asks.  The JAX package's readings
 # (tools/feature_vs_jax.py, on the CPU): EuRoC ATE 0.07357 of the
-# extent, cos -0.06691; synthetic 0.01222, cos 0.99997; the port on the
-# CPU read 0.07129-0.07710 / -0.05911 and 0.01159-0.01222 / 0.99997 over
-# four generator seeds and the JAX draws.  On EuRoC the JAX package
-# fails the cosine gate (its first motion points off the true one:
-# 4.4 cm a frame against planes 1.9-2.9 m away, with 0.43 degrees of
-# rotation a frame), so that gate is the port's own reading less
-# phase 5's 0.1, as phase rect's are.
+# extent, first-motion cos -0.06691, whole-path cos 0.28108; synthetic
+# 0.01222, cos 0.99997; the port on the CPU read 0.07129-0.07710 /
+# -0.05911 / 0.27989-0.28444 and 0.01159-0.01222 / 0.99997 over four
+# generator seeds and the JAX draws.  On EuRoC neither package finds
+# the direction (4.4 cm a frame against planes 1.9-2.9 m away, with 0.43
+# degrees of rotation a frame), first motion or whole path, so EuRoC is
+# gated on its aligned ATE alone and its cosine is read.
 FEATURE_CONFIGS = {
     "euroc": dict(vo=dict(fast_threshold=10.0 / 255.0, min_matches=24,
                           max_keypoints=512), frames=N_EUROC_FRAMES),
@@ -1935,18 +1935,22 @@ FEATURE_CONFIGS = {
 }
 JAX_FEATURE_ATE_SHARE = {"euroc": 0.07357, "synthetic": 0.01222}
 FEATURE_ATE_MARGIN = 1.25
-FEATURE_COS = {"euroc": -0.05911 - 0.1, "synthetic": 0.95}
+FEATURE_COS = {"synthetic": 0.95}
+# tests/vo/test_feature_based.py's configuration, on its 120x160 sequence
+FEATURE_TEST_VO = dict(window_size=8, min_matches=12, max_keypoints=512,
+                       patch_size=24, fast_threshold=0.02)
 # CPU against card (ROADMAP.md's ground rules): past the first
 # factorization the two round apart, and RANSAC's argmax and the LM
-# schedule's strict tests can flip on it, so the trajectory, aligned by
-# one similarity onto the CPU's, is held within 0.1 of its extent and the
-# rotations within 0.02
+# schedule's strict tests can flip on it.  On EuRoC (480x752 and
+# 240x320) the trajectory, aligned by one similarity onto the CPU's,
+# stays within 0.1 of its extent and the rotations within 0.02; on the
+# 120x160 test sequence, at the edge of two-view observability, it does
+# not (PERF.md section 6), so there the difference is read and each
+# device held to that test's own gates.
 FEATURE_CPU_TRAJECTORY = 0.1
 FEATURE_CPU_ROTATION = 0.02
-FEATURE_STAGES = {"_extract": "extract", "_match": "match",
-                  "_solve_pnp": "PnP + guided",
-                  "_guided_localize": "PnP + guided",
-                  "_triangulate_new": "triangulate", "run_ba": "BA"}
+FEATURE_STAGES = ("extract", "match", "PnP + guided", "triangulate", "BA",
+                  "Gauss-Newton")
 
 
 def feature_frames(config):
@@ -1983,148 +1987,92 @@ def fixed_draws(site, shape):
 
 
 def feature_quality(est, gt, R0):
-    """(aligned ATE / extent, cosine of the first motion, the true one
-    taken into the first camera's frame by its rotation ``R0``)."""
+    """(aligned ATE / extent, cosine of the first motion, cosine of the
+    whole path's motion), the true motion taken into the first camera's
+    frame by its rotation ``R0``."""
     from tadataka_torch.metrics import absolute_trajectory_error
     est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
     extent = float(np.linalg.norm(gt[-1] - gt[0]))
     share = float(absolute_trajectory_error(est, gt)) / extent
-    d_est = est[1] - est[0]
-    d_gt = np.asarray(R0, np.float64).T @ (gt[1] - gt[0])
-    return share, float(d_est @ d_gt / (np.linalg.norm(d_est)
-                                       * np.linalg.norm(d_gt)))
+
+    def cos(k):
+        d_est = est[k] - est[0]
+        d_gt = np.asarray(R0, np.float64).T @ (gt[k] - gt[0])
+        return float(d_est @ d_gt / (np.linalg.norm(d_est)
+                                     * np.linalg.norm(d_gt)))
+    return share, cos(1), cos(-1)
 
 
-class FeatureRecorder:
-    """Wraps a FeatureBasedVO's stages: with ``timing``, each stage's
-    wall time between card synchronizations; always, what each frame
-    extracted (prefetched or not) and matched."""
-
-    def __init__(self, vo, device, timing=False):
-        self.ms, self.launched, self.matched = {}, [], []
-        for name, stage in FEATURE_STAGES.items():
-            setattr(vo, name, self._wrap(getattr(vo, name), name, stage,
-                                         device, timing))
-        launch = vo._extract_launch
-
-        def launched(*args, **kwargs):
-            self.launched.append(launch(*args, **kwargs))
-            return self.launched[-1]
-        vo._extract_launch = launched
-
-    @property
-    def extracted(self):
-        """Each frame's (feats, keypoints_px, normalized, normalized_dev,
-        n_valid)."""
-        return [handle.result() for handle in self.launched]
-
-    def _wrap(self, fn, name, stage, device, timing):
-        def wrapped(*args, **kwargs):
-            if timing:
-                sync(device)
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            if timing:
-                sync(device)
-                self.ms[stage] = self.ms.get(stage, 0.0) + (
-                    time.perf_counter() - t0) * 1e3
-            if name == "_match":
-                self.matched.append(out)
-            return out
-        return wrapped
-
-
-def drive_feature(config, frames, device, rng=None, count_syncs=False):
+def drive_feature(frames, device, vo_args, prefetch=False, rng=None,
+                  count_syncs=False):
     """One FeatureBasedVO over the frames on ``device``: (vo, poses,
-    per-frame ms, per-frame host syncs, recorder; the recorder's
-    ``inliers`` holds each frame's PnP inliers, 0 where no PnP ran).
-    The synthetic configuration prefetches the next frame's extraction
-    before each estimate, as bench_feature_vo does; EuRoC does not, as
-    bench_euroc."""
+    per-frame ms, per-frame host syncs, per-frame ``frame_stats``).  With
+    ``prefetch`` each estimate is preceded by the next frame's extraction,
+    as bench_feature_vo does; bench_euroc does not prefetch."""
     import warnings
-    import tadataka_torch.vo.feature_based as feature_based
-    vo = feature_based.FeatureBasedVO(device=device, rng=rng,
-                                      **FEATURE_CONFIGS[config]["vo"])
-    rec = FeatureRecorder(vo, device)
-    prefetch = config == "synthetic"
+    from tadataka_torch.vo.feature_based import FeatureBasedVO
+    vo = FeatureBasedVO(device=device, rng=rng, **vo_args)
     if prefetch:
         vo.prefetch(frames[0])
-    poses, ms, syncs, packed = [], [], [], {}
-    solve_pnp_packed = feature_based.solve_pnp_packed
-
-    def recorded(*args, **kwargs):
-        packed[len(poses)] = solve_pnp_packed(*args, **kwargs)
-        return packed[len(poses)]
-
-    feature_based.solve_pnp_packed = recorded
-    try:
-        for k, frame in enumerate(frames):
+    poses, ms, syncs, stats = [], [], [], []
+    for k, frame in enumerate(frames):
+        sync(device)
+        with warnings.catch_warnings(record=True) as caught:
+            if count_syncs:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            if prefetch and k + 1 < len(frames):
+                vo.prefetch(frames[k + 1])
+            poses.append(vo.estimate(frame))
             sync(device)
-            with warnings.catch_warnings(record=True) as caught:
-                if count_syncs:
-                    warnings.simplefilter("always")
-                    torch.cuda.set_sync_debug_mode("warn")
-                t0 = time.perf_counter()
-                if prefetch and k + 1 < len(frames):
-                    vo.prefetch(frames[k + 1])
-                poses.append(vo.estimate(frame))
-                sync(device)
-                ms.append((time.perf_counter() - t0) * 1e3)
-                if count_syncs:
-                    torch.cuda.set_sync_debug_mode("default")
-            syncs.append(sum("synchroniz" in str(w.message) for w in caught))
-    finally:
-        feature_based.solve_pnp_packed = solve_pnp_packed
-    rec.inliers = [int(packed[k][12]) if k in packed else 0
-                   for k in range(len(frames))]
-    return vo, poses, ms, syncs, rec
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        stats.append(vo.frame_stats)
+    return vo, poses, ms, syncs, stats
 
 
 def feature_stage_times(config, frames, device, repeats=5):
-    """The median ms of each stage on the last frame: the VO before it is
-    copied and the last frame run ``repeats`` times with every stage
-    timed between synchronizations."""
+    """The median ms of each stage on the last frame (utils/timing.py's
+    marks): the VO before it is copied and the last frame run
+    ``repeats`` times, each stage timed between synchronizations."""
     import copy
-    import tadataka_torch.pose_estimation.pnp as pnp
+    from tadataka_torch.utils.timing import record
     from tadataka_torch.vo.feature_based import FeatureBasedVO
     vo = FeatureBasedVO(device=device, rng=fixed_draws,
                         **FEATURE_CONFIGS[config]["vo"])
     for frame in frames[:-1]:
         vo.estimate(frame)
-    refine = pnp._refine_gauss_newton
     runs = []
-    try:
-        for _ in range(repeats + 1):
-            copied = copy.deepcopy(vo)
-            rec = FeatureRecorder(copied, device, timing=True)
-            pnp._refine_gauss_newton = rec._wrap(
-                refine, "_refine_gauss_newton", "of which Gauss-Newton",
-                device, True)
+    for _ in range(repeats + 1):
+        copied = copy.deepcopy(vo)
+        with record() as ms:
             assert copied.estimate(frames[-1]) is not None
-            runs.append(rec.ms)
-    finally:
-        pnp._refine_gauss_newton = refine
-    stages = list(dict.fromkeys(FEATURE_STAGES.values())) + [
-        "of which Gauss-Newton"]
+        runs.append(ms)
     return {stage: statistics.median(r.get(stage, 0.0) for r in runs[1:])
-            for stage in stages}
+            for stage in FEATURE_STAGES}
 
 
 def feature_run_on(config, frames, gt, smi, device="cuda"):
     """The configuration on ``device`` with its own generator: one round
     counting host syncs, two timed; the quality gates on the last."""
-    vo, poses, _, syncs, rec = drive_feature(
-        config, frames, device, count_syncs=device == "cuda")
+    args = dict(vo_args=FEATURE_CONFIGS[config]["vo"],
+                prefetch=config == "synthetic")
+    vo, poses, _, syncs, stats = drive_feature(
+        frames, device, count_syncs=device == "cuda", **args)
     rounds = []
     for _ in range(2):
-        vo, poses, ms, _, _ = drive_feature(config, frames, device)
+        vo, poses, ms, _, _ = drive_feature(frames, device, **args)
         rounds.append(ms)
     assert all(p is not None for p in poses), config
-    share, cos = feature_quality([p.t.numpy() for p in poses], gt,
-                                 frames[0].pose.R.numpy())
+    share, cos, path_cos = feature_quality([p.t.numpy() for p in poses],
+                                           gt, frames[0].pose.R.numpy())
     steady = [statistics.mean(ms[2:]) for ms in rounds]
-    keypoints = [x[4] for x in rec.extracted]
-    matches = [0] + [sum(len(p) for p in m[0]) for m in rec.matched]
+    keypoints = [st["keypoints"] for st in stats]
+    matches = [sum(len(p) for p in st["matches"]) for st in stats]
+    inliers = [st["pnp_inliers"] for st in stats]
     stages = feature_stage_times(config, frames, device)
     shape = tuple(np.asarray(frames[0].image).shape)
     log("feature", f"{config}: {len(frames)} frames at {shape[0]}x"
@@ -2133,99 +2081,137 @@ def feature_run_on(config, frames, gt, smi, device="cuda"):
         f"rounds; per-frame ms of the last: "
         + ", ".join(f"{m:.1f}" for m in rounds[-1]) + f" ({smi})")
     log("feature", f"{config}: keypoints per frame {keypoints}, matches "
-        f"kept {matches}, PnP inliers {rec.inliers}, map points "
+        f"kept {matches}, PnP inliers {inliers}, map points "
         f"{len(vo.point_dict)}, host syncs per frame {syncs}")
     log("feature", f"{config}: stages of the last frame, median of 5: "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
+        + " (the Gauss-Newton of both PnPs, within PnP + guided)")
     ref = JAX_FEATURE_ATE_SHARE[config]
+    cos_gate = (f"gate > {FEATURE_COS[config]}" if config in FEATURE_COS
+                else "read, not gated")
     log("feature", f"{config}: aligned ATE {share:.5f} of the extent "
         f"(gate < {FEATURE_ATE_MARGIN} x JAX's {ref}), first-motion cos "
-        f"{cos:.5f} (gate > {FEATURE_COS[config]:.5f})")
-    assert share < FEATURE_ATE_MARGIN * ref and cos > FEATURE_COS[config], (
-        config, share, cos)
+        f"{cos:.5f} ({cos_gate}), whole-path cos {path_cos:.5f}")
+    assert share < FEATURE_ATE_MARGIN * ref, (config, share)
+    assert config not in FEATURE_COS or cos > FEATURE_COS[config], (
+        config, cos)
     return frames
 
 
-def feature_cpu_vs_card(config, frames, devices=("cpu", "cuda")):
-    """The configuration on the CPU and on the card with the same draws:
-    each frame's extraction and each consecutive pair's matching
-    (mutual-NN with the ratio test, and the guided gate) bit-equal; the
-    poses within the stated tolerance; the Matcher's inlier masks
-    (after RANSAC and the homography filter) compared."""
+def feature_cpu_vs_card(name, frames, vo_args, tolerance=True,
+                        devices=("cpu", "cuda")):
+    """A configuration on the CPU and twice on the card with the same
+    draws: the two card runs bit-equal (no atomic sum on the path), each
+    frame's extraction and each consecutive pair's matching (mutual-NN
+    with the ratio test, and the guided gate) bit-equal on CPU and card,
+    the Matcher's kept matches compared; with ``tolerance`` the poses
+    within the stated CPU-card tolerance, else only read."""
     from tadataka_torch.features.matching import (
         match_descriptors, match_descriptors_guided)
     from tadataka_torch.metrics import apply_similarity, umeyama_alignment
     cpu, card = devices
-    runs = {d: drive_feature(config, frames, d, rng=fixed_draws)
-            for d in devices}
-    recs = {d: runs[d][4] for d in runs}
-    for a, b in zip(recs[cpu].extracted, recs[card].extracted):
-        for x, y in zip(list(a[0]) + [a[3]], list(b[0]) + [b[3]]):
-            assert torch.equal(x, y.cpu()), config
-        assert np.array_equal(a[2], b[2]) and a[4] == b[4], config
+    runs = {key: drive_feature(frames, key[0], vo_args, rng=fixed_draws)
+            for key in ((cpu, 0), (card, 0), (card, 1))}
+    poses = {key: run[1] for key, run in runs.items()}
+    assert all(p is not None for ps in poses.values() for p in ps), name
+    assert all(torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
+               for a, b in zip(poses[card, 0], poses[card, 1])), name
+    vos = {cpu: runs[cpu, 0][0], card: runs[card, 0][0]}
+    assert all(sorted(vo.features) == list(range(len(frames)))
+               for vo in vos.values()), name
+    for v in range(len(frames)):
+        for x, y in zip(vos[cpu].features[v], vos[card].features[v]):
+            assert torch.equal(x, y.cpu()), (name, v)
+        assert np.array_equal(vos[cpu].raw_keypoints[v],
+                              vos[card].raw_keypoints[v]), (name, v)
     matched = {}
-    for d in runs:
-        feats = [(f[0].descriptors, f[0].mask, f[3])
-                 for f in recs[d].extracted]
-        pred = recs[cpu].extracted[0][3].to(d) + 0.002
+    for d, vo in vos.items():
+        feats = [vo.features[v] for v in range(len(frames))]
+        pred = vos[cpu].features[0].keypoints.to(d) + 0.002
         matched[d] = []
-        for (d0, m0, k0), (d1, m1, k1) in zip(feats, feats[1:]):
-            m = match_descriptors(d0, d1, m0, m1)
-            g = match_descriptors_guided(d0, d1, m0, m1, pred, k1, 0.02)
+        for f0, f1 in zip(feats, feats[1:]):
+            m = match_descriptors(f0.descriptors, f1.descriptors, f0.mask,
+                                  f1.mask)
+            g = match_descriptors_guided(f0.descriptors, f1.descriptors,
+                                         f0.mask, f1.mask, pred,
+                                         f1.keypoints, 0.02)
             matched[d] += [x.cpu() for x in (m.indices, m.mask, g.indices,
                                              g.mask)]
     assert all(torch.equal(a, b)
-               for a, b in zip(matched[cpu], matched[card])), config
+               for a, b in zip(matched[cpu], matched[card])), name
     n_masks = n_differ = 0
-    for a, b in zip(recs[cpu].matched, recs[card].matched):
-        for pa, pb in zip(a[0], b[0]):
+    for a, b in zip(runs[cpu, 0][4], runs[card, 0][4]):
+        for pa, pb in zip(a["matches"], b["matches"]):
             sa, sb = set(map(tuple, pa)), set(map(tuple, pb))
             n_masks += len(sa | sb)
             n_differ += len(sa ^ sb)
-    poses = {d: runs[d][1] for d in runs}
-    assert all(p is not None for d in poses for p in poses[d]), config
-    est_c = np.stack([p.t.numpy() for p in poses[cpu]])
-    est_g = np.stack([p.t.numpy() for p in poses[card]])
+    est_c = np.stack([p.t.numpy() for p in poses[cpu, 0]])
+    est_g = np.stack([p.t.numpy() for p in poses[card, 0]])
     aligned = apply_similarity(*umeyama_alignment(est_g, est_c),
                                est_g).numpy()
     extent = float(np.linalg.norm(est_c[-1] - est_c[0]))
     d_traj = float(np.linalg.norm(aligned - est_c, axis=1).max()) / extent
     d_R = max(float(np.abs(a.R.numpy() - b.R.numpy()).max())
-              for a, b in zip(poses[cpu], poses[card]))
+              for a, b in zip(poses[cpu, 0], poses[card, 0]))
     d_t = max(float(np.abs(a.t.numpy() - b.t.numpy()).max())
-              for a, b in zip(poses[cpu], poses[card]))
-    log("feature", f"{config} CPU against card (the same draws): "
-        f"extraction of {len(frames)} frames and the matching of each "
-        f"consecutive pair (mutual NN + ratio, guided gate) bit-equal; "
-        f"the Matcher's kept matches differ in {n_differ} of {n_masks} "
-        f"({n_differ / max(n_masks, 1):.4f}); poses: largest rotation "
-        f"difference {d_R:.3e}, translation {d_t:.3e}, aligned trajectory "
-        f"{d_traj:.4f} of the extent (gates < {FEATURE_CPU_ROTATION}, < "
-        f"{FEATURE_CPU_TRAJECTORY})")
-    assert d_R < FEATURE_CPU_ROTATION and d_traj < FEATURE_CPU_TRAJECTORY, (
-        config, d_R, d_traj)
+              for a, b in zip(poses[cpu, 0], poses[card, 0]))
+    gates = (f"gates < {FEATURE_CPU_ROTATION}, < {FEATURE_CPU_TRAJECTORY}"
+             if tolerance else "read, not gated")
+    log("feature", f"{name} CPU against card (the same draws): two card "
+        f"runs bit-equal; extraction of {len(frames)} frames and the "
+        f"matching of each consecutive pair (mutual NN + ratio, guided "
+        f"gate) bit-equal; the Matcher's kept matches differ in "
+        f"{n_differ} of {n_masks} ({n_differ / max(n_masks, 1):.4f}); "
+        f"poses: largest rotation difference {d_R:.3e}, translation "
+        f"{d_t:.3e}, aligned trajectory {d_traj:.4f} of the extent "
+        f"({gates})")
+    if tolerance:
+        assert (d_R < FEATURE_CPU_ROTATION
+                and d_traj < FEATURE_CPU_TRAJECTORY), (name, d_R, d_traj)
+    return {d: poses[d, 0] for d in devices}
+
+
+def feature_test_sequence():
+    """tests/vo/test_feature_based.py's sequence and configuration (5
+    frames of the multi-plane scene at 120x160, focal 120) on the CPU and
+    the card: its own gates on both (aligned ATE under 0.25 of the
+    extent, first-motion cos over 0.95), the CPU-card difference read."""
+    from tadataka_torch.dataset.synthetic import multi_plane_scene
+    n = 5
+    ds = multi_plane_scene(n, (120, 160), (120.0, 120.0),
+                           trajectory(n, step=(0.25, 0.01, 0.02),
+                                      yaw=0.002))
+    frames = [ds[i] for i in range(n)]
+    gt = np.stack([f.pose.t.numpy() for f in frames])
+    poses = feature_cpu_vs_card("test sequence 120x160", frames,
+                                FEATURE_TEST_VO, tolerance=False)
+    for device, ps in poses.items():
+        share, cos, _ = feature_quality([p.t.numpy() for p in ps], gt,
+                                        frames[0].pose.R.numpy())
+        log("feature", f"test sequence 120x160 on {device}: aligned ATE "
+            f"{share:.5f} of the extent (gate < 0.25), first-motion cos "
+            f"{cos:.5f} (gate > 0.95)")
+        assert share < 0.25 and cos > 0.95, (device, share, cos)
 
 
 def phase_feature(smi):
     """FeatureBasedVO on the card: EuRoC's 480x752 export with
     bench_euroc's setting and the multi-plane scene at 480x640 with
-    bench_feature_vo's, each timed and gated on quality; then EuRoC on
-    the CPU and the card with the same draws."""
+    bench_feature_vo's, each timed and gated on quality; then EuRoC and
+    the reference's 120x160 test sequence on the CPU and the card with
+    the same draws."""
     for config in FEATURE_CONFIGS:
         frames, gt = feature_frames(config)
         feature_run_on(config, frames, gt, smi)
         if config == "euroc":
             euroc_frames = frames
-    feature_cpu_vs_card("euroc", euroc_frames)
+    feature_cpu_vs_card("euroc", euroc_frames, FEATURE_CONFIGS["euroc"]["vo"])
+    feature_test_sequence()
 
 
 def main():
     smi = phase_environment()
     sys.path.insert(0, str(ROOT))
-    if sys.argv[1:3] == ["--only", "feature"]:
-        # the feature phase alone, for a short run; no result lines
-        phase_feature(smi)
-        return
     t0 = time.perf_counter()
     phase_build()
     timings = phase_kernel_vs_plain()

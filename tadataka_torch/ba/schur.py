@@ -4,6 +4,10 @@
 The per-observation Jacobian blocks come from ``ba/residuals.py``; the
 normal equations are summed into dense per-point blocks W (N, M, 6, 3);
 the reduced camera system S (6M x 6M) is one contraction over the points.
+The sums over observations take one order on every run (``_scatter_sum``):
+the card's ``index_add_`` adds by atomics, in another order each run, and
+the LM's strict tests at damping near 1e-8 turn such last bits into
+different trials.
 The LM schedule (mu / nu, then mu, then mu * nu^k up to ``max_mu``) runs
 on the host: each trial reads one error from the device, and every test
 is made in float32 as the JAX package's ``while_loop`` makes it.
@@ -14,6 +18,7 @@ import torch
 
 from tadataka_torch.ba.residuals import (
     projection_residuals, projection_jacobians)
+from tadataka_torch.core.rounding import fixed_order_sum
 from tadataka_torch.core.solvers import inv, solve
 from tadataka_torch.device import resolve_device
 
@@ -23,11 +28,57 @@ def _mean_squared_error(r, weights):
             / torch.clamp(torch.sum(weights), min=1.0))
 
 
+def _segments(index, counts, K):
+    """(n, K) positions into the observations: each row's, in their order,
+    padded with O (one past the last); ``counts`` (n,) the rows' sizes."""
+    O = index.shape[0]
+    order = torch.argsort(index, stable=True)
+    start = torch.cumsum(counts, 0) - counts
+    grouped = index[order]
+    rank = torch.arange(O, device=index.device) - start[grouped]
+    positions = torch.full((len(counts), K), O, dtype=torch.int64,
+                           device=index.device)
+    positions[grouped, rank] = order
+    return positions
+
+
+def _layout(viewpoint_indices, point_indices, M, N):
+    """How ``_scatter_sum`` sums on the card: the rows of U and e_cam
+    (viewpoints), V and e_pt (points) and W (point-viewpoint pairs) as
+    ``_segments``, from one host read of the largest row sizes (the
+    sizes are counted by an integer scatter-add, exact in any order;
+    ``torch.bincount`` would read its input's maximum on the host)."""
+    groups = ((viewpoint_indices, M), (point_indices, N),
+              (point_indices * M + viewpoint_indices, N * M))
+    counts = [torch.zeros(n, dtype=torch.int64, device=i.device).index_add_(
+        0, i, torch.ones_like(i)) for i, n in groups]
+    K = torch.stack([c.max() for c in counts]).tolist()
+    return tuple(_segments(i, c, max(k, 1))
+                 for (i, _), c, k in zip(groups, counts, K))
+
+
+def _scatter_sum(values, index, n, positions):
+    """Sums of values (O, ...) into n rows by index.  On the CPU,
+    ``index_add_`` adds each row's terms one by one in observation order,
+    as the JAX package's scatter does.  On the card each row's terms,
+    gathered by ``positions`` (``_layout``), are summed pairwise by
+    ``fixed_order_sum``: the same bits on every run."""
+    if positions is None:
+        return values.new_zeros((n,) + values.shape[1:]).index_add_(
+            0, index, values)
+    padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+    return fixed_order_sum(padded[positions].movedim(1, -1))
+
+
 def _assemble(poses, points, viewpoint_indices, point_indices, x_true,
-              weights):
-    """(U, V, W, e_cam, e_pt, error) of the current state."""
+              weights, layout=None):
+    """(U, V, W, e_cam, e_pt, error) of the current state.  ``layout``:
+    ``_layout`` of the indices, made here on the card if not given."""
     M = poses.shape[0]
     N = points.shape[0]
+    if layout is None and poses.device.type != "cpu":
+        layout = _layout(viewpoint_indices, point_indices, M, N)
+    by_view, by_point, by_pair = layout or (None, None, None)
     r = projection_residuals(poses, points, viewpoint_indices, point_indices,
                              x_true)                       # (O, 2)
     A, B = projection_jacobians(poses, points, viewpoint_indices,
@@ -35,18 +86,17 @@ def _assemble(poses, points, viewpoint_indices, point_indices, x_true,
     w = weights[:, None, None]
     Aw = A * w
     Bw = B * w
-    zeros = poses.new_zeros
-    U = zeros((M, 6, 6)).index_add_(
-        0, viewpoint_indices, torch.einsum('oia,oib->oab', Aw, A))
-    V = zeros((N, 3, 3)).index_add_(
-        0, point_indices, torch.einsum('oia,oib->oab', Bw, B))
-    W = zeros((N, M, 6, 3)).index_put_(
-        (point_indices, viewpoint_indices),
-        torch.einsum('oia,oib->oab', Aw, B), accumulate=True)
-    e_cam = zeros((M, 6)).index_add_(
-        0, viewpoint_indices, torch.einsum('oia,oi->oa', Aw, r))
-    e_pt = zeros((N, 3)).index_add_(
-        0, point_indices, torch.einsum('oia,oi->oa', Bw, r))
+    U = _scatter_sum(torch.einsum('oia,oib->oab', Aw, A), viewpoint_indices,
+                     M, by_view)
+    V = _scatter_sum(torch.einsum('oia,oib->oab', Bw, B), point_indices, N,
+                     by_point)
+    W = _scatter_sum(torch.einsum('oia,oib->oab', Aw, B),
+                     point_indices * M + viewpoint_indices, N * M,
+                     by_pair).reshape(N, M, 6, 3)
+    e_cam = _scatter_sum(torch.einsum('oia,oi->oa', Aw, r),
+                         viewpoint_indices, M, by_view)
+    e_pt = _scatter_sum(torch.einsum('oia,oi->oa', Bw, r), point_indices, N,
+                        by_point)
     return U, V, W, e_cam, e_pt, _mean_squared_error(r, weights)
 
 
@@ -80,6 +130,8 @@ def lm_solve(poses, points, viewpoint_indices, point_indices, x_true,
     if weights is None:
         weights = torch.ones(x_true.shape[0], dtype=x_true.dtype,
                              device=x_true.device)
+    layout = (None if poses.device.type == "cpu" else _layout(
+        viewpoint_indices, point_indices, poses.shape[0], points.shape[0]))
     f32 = np.float32
     nu, max_mu = f32(nu), f32(max_mu)
     abs_thr, rel_thr = f32(absolute_error_threshold), f32(
@@ -96,7 +148,8 @@ def lm_solve(poses, points, viewpoint_indices, point_indices, x_true,
         equations depend only on (po, pt): one assembly serves every
         trial."""
         U, V, W, e_cam, e_pt, error0 = _assemble(
-            po, pt, viewpoint_indices, point_indices, x_true, weights)
+            po, pt, viewpoint_indices, point_indices, x_true, weights,
+            layout)
         error0 = f32(error0.item())
 
         def try_mu(mu_):

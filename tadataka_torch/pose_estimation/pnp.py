@@ -16,6 +16,7 @@ from tadataka_torch.device import resolve_device
 from tadataka_torch.features.ransac import (
     _sample_valid_indices, default_generator, take_rows, uniform_draws)
 from tadataka_torch.utils.exceptions import NotEnoughInliersException
+from tadataka_torch.utils.timing import stage
 
 DEFAULT_TRIALS = 128
 MIN_CORRESPONDENCES = 6
@@ -139,8 +140,9 @@ def solve_pnp_ransac(points, keypoints, mask, rng,
 
     err = _reprojection_errors(R, t, points, keypoints)
     inliers = mask & (err < reprojection_threshold)
-    R, t = _refine_gauss_newton(R, t, points, keypoints,
-                                inliers.to(points.dtype), GN_ITERATIONS)
+    with stage("Gauss-Newton", points.device):
+        R, t = _refine_gauss_newton(R, t, points, keypoints,
+                                    inliers.to(points.dtype), GN_ITERATIONS)
     err = _reprojection_errors(R, t, points, keypoints)
     return Pose(R, t), mask & (err < reprojection_threshold)
 

@@ -24,6 +24,11 @@ and windowed bundle adjustment (counterpart of
   guided one.
 - Poses are world -> camera ``Pose`` objects of float32 CPU tensors;
   ``estimate`` returns camera -> world.
+- ``frame_stats`` holds what the host read of the last frame: its valid
+  keypoints, the matches kept per window keyframe (host index arrays)
+  and the inliers of the PnP against the matched points (0 where none
+  ran).  The stages extract, match, "PnP + guided", triangulate and BA
+  are marked for ``utils/timing.py``.
 """
 
 import numpy as np
@@ -46,6 +51,7 @@ from tadataka_torch.pose_estimation.pnp import (
     solve_pnp_packed, solve_pnp_ransac)
 from tadataka_torch.utils.exceptions import (
     NotEnoughInliersException, print_error)
+from tadataka_torch.utils.timing import stage
 
 
 def _pose_from_flat(flat):
@@ -104,6 +110,7 @@ class FeatureBasedVO:
         self._next_point_id = 0
         self._camera = (None, None)   # (a frame's model, its device copy)
         self._prefetched = {}
+        self.frame_stats = {}
 
     # ------------------------------------------------------------------ api
 
@@ -203,15 +210,18 @@ class FeatureBasedVO:
             if len(sel) >= self.min_matches:
                 pairs.append(sel)
                 kept_viewpoints.append(v)
+        self.frame_stats["matches"] = pairs
         if not pairs:
             raise NotEnoughInliersException("Not enough matches found")
         return pairs, kept_viewpoints
 
     def add(self, camera_model, image, min_keypoints=8, extracted=None):
         image = host(image)
-        feats, keypoints_px, normalized, normalized_dev, n_valid = (
-            extracted if extracted is not None
-            else self._extract(camera_model, image))
+        with stage("extract", self.device):
+            feats, keypoints_px, normalized, normalized_dev, n_valid = (
+                extracted if extracted is not None
+                else self._extract(camera_model, image))
+        self.frame_stats = dict(keypoints=n_valid, matches=[], pnp_inliers=0)
         if n_valid <= min_keypoints:
             print_error("Keypoints not sufficient")
             return -1
@@ -255,20 +265,25 @@ class FeatureBasedVO:
         self.active_viewpoints.append(viewpoint1)
 
         if len(self.active_viewpoints) >= 3:
-            self.run_ba(self.active_viewpoints)
+            with stage("BA", self.device):
+                self.run_ba(self.active_viewpoints)
         return viewpoint1
 
     def _estimate_pose_points(self, features1):
         if len(self.active_viewpoints) == 1:
             return self._init_first_two(features1, self.active_viewpoints[0])
 
-        pairs, viewpoints = self._match(features1, self.active_viewpoints)
-        pose1 = self._solve_pnp(viewpoints, pairs)
-        guided_assoc = {}
-        if self.guided_radius is not None:
-            pose1, guided_assoc = self._guided_localize(features1, pose1)
-        pose1, new_points, corr_updates, correspondence1 = \
-            self._triangulate_new(viewpoints, pairs, pose1)
+        with stage("match", self.device):
+            pairs, viewpoints = self._match(features1,
+                                            self.active_viewpoints)
+        with stage("PnP + guided", self.device):
+            pose1 = self._solve_pnp(viewpoints, pairs)
+            guided_assoc = {}
+            if self.guided_radius is not None:
+                pose1, guided_assoc = self._guided_localize(features1, pose1)
+        with stage("triangulate", self.device):
+            pose1, new_points, corr_updates, correspondence1 = \
+                self._triangulate_new(viewpoints, pairs, pose1)
         # the guided associations that triangulation left free
         used_pids = set(correspondence1.values())
         for i1, pid in guided_assoc.items():
@@ -424,6 +439,7 @@ class FeatureBasedVO:
             np.ones(n, bool), rng=self.rng,
             reprojection_threshold=self.pnp_threshold,
             device=self.device).cpu().numpy()
+        self.frame_stats["pnp_inliers"] = int(packed[12])
         if packed[12] < 1.0:
             raise NotEnoughInliersException("No inliers found")
         return _pose_from_flat(packed)

@@ -113,6 +113,27 @@ def test_residuals_and_assemble():
         close(a, b, 1e-5 * max(np.abs(b).max(), 1e-3))
 
 
+def test_assemble_card_layout():
+    """The card's sums (``_layout``: each row's terms gathered in
+    observation order and summed pairwise), run here on CPU tensors:
+    within the same tolerance of the JAX package's scatter-adds, and
+    rows with no term exactly zero."""
+    _, _, po, pt, vi, pi_, x = make_problem(1)
+    w = (np.arange(len(vi)) % 7 != 0).astype(np.float32)
+    ref = jschur._assemble(jnp.asarray(po), jnp.asarray(pt),
+                           jnp.asarray(vi), jnp.asarray(pi_),
+                           jnp.asarray(x), jnp.asarray(w))
+    layout = schur._layout(T(vi), T(pi_), len(po), len(pt) + 2)
+    out = schur._assemble(T(po), T(np.vstack([pt, pt[:2]])), T(vi), T(pi_),
+                          T(x), T(w), layout)
+    assert not out[1][-2:].any() and not out[2][-2:].any()
+    assert not out[4][-2:].any()
+    out = (out[0], out[1][:-2], out[2][:-2], out[3], out[4][:-2], out[5])
+    for a, b in zip(out, ref):
+        b = np.asarray(b)
+        close(a, b, 1e-5 * max(np.abs(b).max(), 1e-3))
+
+
 @pytest.mark.parametrize("mu", [1e-2, 1.0, 1e4])
 def test_schur_step(mu):
     _, _, po, pt, vi, pi_, x = make_problem(2)

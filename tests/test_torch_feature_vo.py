@@ -221,6 +221,31 @@ def test_feature_based_vo_exports(sequence):
     assert len(vo.export_poses()) == 3
 
 
+def test_frame_stats_and_stage_marks(sequence):
+    """``frame_stats`` reads each frame's valid keypoints, kept matches and
+    PnP inliers; inside ``timing.record()`` every marked stage reports a
+    time, outside it none is kept."""
+    from tadataka_torch.utils.timing import record
+    vo = FeatureBasedVO(device="cpu", **CONFIG)
+    vo.estimate(sequence[0])
+    assert vo.frame_stats == dict(keypoints=int(vo.features[0].mask.sum()),
+                                  matches=[], pnp_inliers=0)
+    vo.estimate(sequence[1])
+    assert vo.frame_stats["pnp_inliers"] == 0
+    assert sum(len(m) for m in vo.frame_stats["matches"]) >= 12
+    with record() as ms:
+        vo.estimate(sequence[2])
+    n = sum(len(m) for m in vo.frame_stats["matches"])
+    assert 0 < vo.frame_stats["pnp_inliers"] <= n
+    assert set(ms) == {"extract", "match", "PnP + guided", "triangulate",
+                       "BA", "Gauss-Newton"}
+    assert all(t > 0.0 for t in ms.values())
+    assert ms["Gauss-Newton"] < ms["PnP + guided"]
+    before = dict(ms)
+    vo.estimate(sequence[3])
+    assert ms == before
+
+
 def test_window_eviction(sequence):
     vo = FeatureBasedVO(device="cpu", **dict(CONFIG, window_size=2))
     for i in range(4):

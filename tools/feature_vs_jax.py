@@ -25,7 +25,8 @@ injected; the port with its own generator (seeded 3939, and with
 ``--seeds`` more seeds).  Prints, per run, the frames that returned a
 pose, the aligned (Umeyama) ATE as a share of the ground truth's extent
 and the cosine between the first estimated motion and the true one in
-the first camera's frame (the VO's world), then one JSON line.
+the first camera's frame (the VO's world), the same cosine for the
+whole path (last position less the first), then one JSON line.
 ``chip_smoke.py`` gates the card on the JAX readings.  A few minutes
 (the JAX app compiles its programs per capacity bucket).
 """
@@ -70,19 +71,22 @@ def jax_uniform(site, shape):
 
 
 def readings(est, gt, R0):
-    """(aligned ATE / extent, cos of the first motion) over the frames
-    that returned a pose; ``R0`` is the first camera's rotation (camera
-    -> world), which takes the true motion into the VO's world."""
+    """(aligned ATE / extent, cos of the first motion, cos of the whole
+    path's motion, last position less first) over the frames that
+    returned a pose; ``R0`` is the first camera's rotation (camera ->
+    world), which takes the true motion into the VO's world."""
     from tadataka_torch.metrics import absolute_trajectory_error
     if len(est) < 2:
-        return float("nan"), float("nan")
+        return float("nan"), float("nan"), float("nan")
     est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
     extent = float(np.linalg.norm(gt[-1] - gt[0]))
     ate = float(absolute_trajectory_error(est, gt))
-    d_est = est[1] - est[0]
-    d_gt = np.asarray(R0, np.float64).T @ (gt[1] - gt[0])
-    cos = float(d_est @ d_gt / (np.linalg.norm(d_est) * np.linalg.norm(d_gt)))
-    return ate / extent, cos
+    def cos(k):
+        d_est = est[k] - est[0]
+        d_gt = np.asarray(R0, np.float64).T @ (gt[k] - gt[0])
+        return float(d_est @ d_gt
+                     / (np.linalg.norm(d_est) * np.linalg.norm(d_gt)))
+    return ate / extent, cos(1), cos(-1)
 
 
 def frames_of(config, root, package):
@@ -139,8 +143,9 @@ def run(config, frames, vo):
         if pose is not None:
             est.append(np.asarray(pose.t))
             gt.append(t_true)
-    share, cos = readings(est, gt, frames[0][3])
+    share, cos, path_cos = readings(est, gt, frames[0][3])
     return dict(frames=f"{len(est)}/{len(frames)}", ate_share=share, cos=cos,
+                path_cos=path_cos,
                 points=len(vo.point_dict), ms=[round(m, 1) for m in ms])
 
 
@@ -178,7 +183,8 @@ def main():
             for name, r in out.items():
                 print(f"[{config}] {name}: {r['frames']} frames with a pose, "
                       f"ATE {r['ate_share']:.5f} of the extent, first-motion "
-                      f"cos {r['cos']:.5f}, {r['points']} points; ms/frame "
+                      f"cos {r['cos']:.5f}, whole-path cos "
+                      f"{r['path_cos']:.5f}, {r['points']} points; ms/frame "
                       f"{r['ms']}", flush=True)
             result[config] = out
     print(json.dumps(result))
