@@ -25,11 +25,16 @@ export at 480x752 read back with its stereo depth, and a NewTsukuba tree
 read back (``euroc``), and ``PipelinedSemiDenseVO`` (tracker and mapper
 on two streams) at 480x640 beside ``SemiDenseVO`` (``pipelined``), each
 held bit for bit to the CPU and gated against the JAX package's
-readings.  Last, ``FeatureBasedVO`` (``feature``) on the EuRoC export at
+readings.  Then ``FeatureBasedVO`` (``feature``) on the EuRoC export at
 480x752 and on the multi-plane scene at 480x640, gated on its trajectory
-against the JAX package's readings, and on the EuRoC frames on the CPU
-and the card, its front end bit for bit and its poses within a stated
-tolerance.  Every
+against the JAX package's readings, and on the EuRoC frames and the
+reference's 120x160 test sequence on the CPU and the card with the same
+draws: poses, map and every value the VO probes stage by stage bit for
+bit (the first that parts is named).  Last, ``VitaminEVO``
+(``vitamin_e``) at 480x640: its curvature, extrema, ORB descriptors,
+tracks, poses and map bit for bit on the CPU and the card, its
+trajectory and map gated on the JAX package's readings, its stage
+times, ms/frame and host syncs a frame printed.  Every
 phase prints lines; any failure ends the script with a traceback and a
 non-zero exit.  The last lines are the card's name and power limit, a
 JSON line of per-kernel results, and a JSON line ``{"ok": true,
@@ -1939,16 +1944,11 @@ FEATURE_COS = {"synthetic": 0.95}
 # tests/vo/test_feature_based.py's configuration, on its 120x160 sequence
 FEATURE_TEST_VO = dict(window_size=8, min_matches=12, max_keypoints=512,
                        patch_size=24, fast_threshold=0.02)
-# CPU against card (ROADMAP.md's ground rules): past the first
-# factorization the two round apart, and RANSAC's argmax and the LM
-# schedule's strict tests can flip on it.  On EuRoC (480x752 and
-# 240x320) the trajectory, aligned by one similarity onto the CPU's,
-# stays within 0.1 of its extent and the rotations within 0.02; on the
-# 120x160 test sequence, at the edge of two-view observability, it does
-# not (PERF.md section 6), so there the difference is read and each
-# device held to that test's own gates.
-FEATURE_CPU_TRAJECTORY = 0.1
-FEATURE_CPU_ROTATION = 0.02
+# CPU against card (ROADMAP.md's ground rules): the same bits, poses and
+# maps, on EuRoC and on the 120x160 test sequence.  Past matching every
+# factorization runs on the host and every other operation in a fixed
+# order (core/solvers.py, core/rounding.py); the stage-by-stage capture
+# names the first value that parts if they ever do.
 FEATURE_STAGES = ("extract", "match", "PnP + guided", "triangulate", "BA",
                   "Gauss-Newton")
 
@@ -2098,17 +2098,15 @@ def feature_run_on(config, frames, gt, smi, device="cuda"):
     return frames
 
 
-def feature_cpu_vs_card(name, frames, vo_args, tolerance=True,
-                        devices=("cpu", "cuda")):
+def feature_cpu_vs_card(name, frames, vo_args, devices=("cpu", "cuda")):
     """A configuration on the CPU and twice on the card with the same
     draws: the two card runs bit-equal (no atomic sum on the path), each
     frame's extraction and each consecutive pair's matching (mutual-NN
     with the ratio test, and the guided gate) bit-equal on CPU and card,
-    the Matcher's kept matches compared; with ``tolerance`` the poses
-    within the stated CPU-card tolerance, else only read."""
+    the Matcher's kept matches, every pose and the map bit-equal; the
+    stage-by-stage comparison (``feature_stage_parting``) printed."""
     from tadataka_torch.features.matching import (
         match_descriptors, match_descriptors_guided)
-    from tadataka_torch.metrics import apply_similarity, umeyama_alignment
     cpu, card = devices
     runs = {key: drive_feature(frames, key[0], vo_args, rng=fixed_draws)
             for key in ((cpu, 0), (card, 0), (card, 1))}
@@ -2145,46 +2143,92 @@ def feature_cpu_vs_card(name, frames, vo_args, tolerance=True,
             sa, sb = set(map(tuple, pa)), set(map(tuple, pb))
             n_masks += len(sa | sb)
             n_differ += len(sa ^ sb)
-    est_c = np.stack([p.t.numpy() for p in poses[cpu, 0]])
-    est_g = np.stack([p.t.numpy() for p in poses[card, 0]])
-    aligned = apply_similarity(*umeyama_alignment(est_g, est_c),
-                               est_g).numpy()
-    extent = float(np.linalg.norm(est_c[-1] - est_c[0]))
-    d_traj = float(np.linalg.norm(aligned - est_c, axis=1).max()) / extent
-    d_R = max(float(np.abs(a.R.numpy() - b.R.numpy()).max())
-              for a, b in zip(poses[cpu, 0], poses[card, 0]))
-    d_t = max(float(np.abs(a.t.numpy() - b.t.numpy()).max())
-              for a, b in zip(poses[cpu, 0], poses[card, 0]))
-    gates = (f"gates < {FEATURE_CPU_ROTATION}, < {FEATURE_CPU_TRAJECTORY}"
-             if tolerance else "read, not gated")
+    same_poses = all(torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
+                     for a, b in zip(poses[cpu, 0], poses[card, 0]))
+    maps = [vos[d].point_dict for d in devices]
+    same_map = (sorted(maps[0]) == sorted(maps[1]) and all(
+        np.array_equal(maps[0][k], maps[1][k]) for k in maps[0]))
     log("feature", f"{name} CPU against card (the same draws): two card "
         f"runs bit-equal; extraction of {len(frames)} frames and the "
         f"matching of each consecutive pair (mutual NN + ratio, guided "
         f"gate) bit-equal; the Matcher's kept matches differ in "
-        f"{n_differ} of {n_masks} ({n_differ / max(n_masks, 1):.4f}); "
-        f"poses: largest rotation difference {d_R:.3e}, translation "
-        f"{d_t:.3e}, aligned trajectory {d_traj:.4f} of the extent "
-        f"({gates})")
-    if tolerance:
-        assert (d_R < FEATURE_CPU_ROTATION
-                and d_traj < FEATURE_CPU_TRAJECTORY), (name, d_R, d_traj)
+        f"{n_differ} of {n_masks}; poses of {len(frames)} frames "
+        f"{'bit-equal' if same_poses else 'DIFFER'}, map of "
+        f"{len(maps[0])} points {'bit-equal' if same_map else 'DIFFERS'}")
+    parting = feature_stage_parting(name, frames, vo_args, devices)
+    assert n_differ == 0 and same_poses and same_map and parting is None, (
+        name, n_differ, same_poses, same_map, parting)
     return {d: poses[d, 0] for d in devices}
+
+
+def first_parting(a, b):
+    """The first entry of two ``utils/timing.py`` captures (lists of
+    (stage, name, value)) whose bits differ: (index, stage, name, largest
+    difference), or None where the captures are equal."""
+    for i, ((sa, na, va), (sb, nb, vb)) in enumerate(zip(a, b)):
+        if (sa, na) != (sb, nb) or va.shape != vb.shape:
+            return i, f"{sa}/{sb}", f"{na}/{nb}", float("nan")
+        if not np.array_equal(va, vb, equal_nan=True):
+            with np.errstate(invalid="ignore"):
+                diff = np.abs(va.astype(np.float64) - vb.astype(np.float64))
+            return i, sa, na, float(np.nanmax(diff)) if diff.size else 0.0
+    if len(a) != len(b):
+        return min(len(a), len(b)), "end", "length", float("nan")
+    return None
+
+
+def feature_stage_parting(name, frames, vo_args, devices=("cpu", "cuda")):
+    """Where the VO on the card first parts from the CPU with the same
+    draws: each frame run under ``utils/timing.py``'s ``capture()``
+    (RANSAC's trial scores and chosen trial, E and its decomposition,
+    the cheirality vote, each triangulated map, each PnP's trials and
+    argmax and its Gauss-Newton steps, each BA's normal equations and
+    every LM trial's error and decision) on both devices, and the
+    captures compared entry by entry.  Returns (frame, stage, quantity,
+    largest difference) of the first difference, or None."""
+    from tadataka_torch.utils.timing import capture
+    from tadataka_torch.vo.feature_based import FeatureBasedVO
+    captured = {}
+    for device in devices:
+        vo = FeatureBasedVO(device=device, rng=fixed_draws, **vo_args)
+        captured[device] = []
+        for frame in frames:
+            with capture() as values:
+                vo.estimate(frame)
+            captured[device].append(values)
+    n_values = sum(len(v) for v in captured[devices[0]])
+    for k, (a, b) in enumerate(zip(*(captured[d] for d in devices))):
+        parting = first_parting(a, b)
+        if parting is not None:
+            i, stage, quantity, diff = parting
+            log("feature", f"{name}: the card first parts from the CPU at "
+                f"frame {k}, stage {stage!r}, {quantity} (value {i} of the "
+                f"frame's {len(a)}), largest difference {diff:.3e}")
+            return k, stage, quantity, diff
+    log("feature", f"{name}: every probed value of every frame bit-equal "
+        f"on CPU and card ({n_values} values)")
+    return None
+
+
+def test_sequence_frames(n=5):
+    """tests/vo/test_feature_based.py's sequence: n frames of the
+    multi-plane scene at 120x160, focal 120."""
+    from tadataka_torch.dataset.synthetic import multi_plane_scene
+    ds = multi_plane_scene(n, (120, 160), (120.0, 120.0),
+                           trajectory(n, step=(0.25, 0.01, 0.02),
+                                      yaw=0.002))
+    return [ds[i] for i in range(n)]
 
 
 def feature_test_sequence():
     """tests/vo/test_feature_based.py's sequence and configuration (5
     frames of the multi-plane scene at 120x160, focal 120) on the CPU and
-    the card: its own gates on both (aligned ATE under 0.25 of the
-    extent, first-motion cos over 0.95), the CPU-card difference read."""
-    from tadataka_torch.dataset.synthetic import multi_plane_scene
-    n = 5
-    ds = multi_plane_scene(n, (120, 160), (120.0, 120.0),
-                           trajectory(n, step=(0.25, 0.01, 0.02),
-                                      yaw=0.002))
-    frames = [ds[i] for i in range(n)]
+    the card: bit-equal, and that test's own gates (aligned ATE under
+    0.25 of the extent, first-motion cos over 0.95)."""
+    frames = test_sequence_frames()
     gt = np.stack([f.pose.t.numpy() for f in frames])
     poses = feature_cpu_vs_card("test sequence 120x160", frames,
-                                FEATURE_TEST_VO, tolerance=False)
+                                FEATURE_TEST_VO)
     for device, ps in poses.items():
         share, cos, _ = feature_quality([p.t.numpy() for p in ps], gt,
                                         frames[0].pose.R.numpy())
@@ -2207,6 +2251,173 @@ def phase_feature(smi):
             euroc_frames = frames
     feature_cpu_vs_card("euroc", euroc_frames, FEATURE_CONFIGS["euroc"]["vo"])
     feature_test_sequence()
+
+
+# VITAMIN-E (phase vitamin_e): examples/vitamin_e_vo.py's trajectory on
+# the multi-plane scene at 480x640, focal 480, 5 frames, with the JAX
+# package's VitaminEVO defaults but fast_threshold=0.02 and lambda_=0.5;
+# gated on the JAX package's readings of the same frames on the CPU
+# (JAX_PLATFORMS=cpu python tools/vitamin_e_vs_jax.py): aligned ATE over
+# the true extent under 1.25 x JAX's, the map at least 0.8 x JAX's and
+# over 1000 points (tests/realdata/test_new_tsukuba_real.py's gate).
+N_VITAMIN_E_FRAMES = 5
+VITAMIN_E_VO = dict(fast_threshold=0.02, lambda_=0.5)
+VITAMIN_E_TEXTURE = "sharp"
+JAX_VITAMIN_E = dict(ate_share=0.04010, map_points=2062)
+VITAMIN_E_STAGES = ("extract", "flow", "curvature + climb", "new area",
+                    "pose", "triangulate")
+
+
+def vitamin_e_frames(texture=VITAMIN_E_TEXTURE, n=N_VITAMIN_E_FRAMES,
+                     shape=VGA, focal=VGA_FOCAL):
+    """(frames with float32 CPU images, true camera positions): the
+    multi-plane scene on examples/vitamin_e_vo.py's trajectory (rotvec (0,
+    0.003 i, 0), t (0.15 i, 0.01 i, 0)), the default texture or the
+    EuRoC export's ("sharp")."""
+    from tadataka_torch.core.pose import Pose
+    from tadataka_torch.dataset.synthetic import (
+        MULTI_PLANES, PlaneSceneDataset, _sharp_texture, default_texture)
+    poses = [Pose.from_rotvec(torch.tensor([0.0, 0.003 * i, 0.0]),
+                              torch.tensor([0.15 * i, 0.01 * i, 0.0]))
+             for i in range(n)]
+    ds = PlaneSceneDataset(poses, shape, (focal, focal), planes=MULTI_PLANES,
+                           texture=dict(default=default_texture,
+                                        sharp=_sharp_texture)[texture])
+    out = [ds[i] for i in range(n)]
+    return out, np.stack([f.pose.t.numpy() for f in out])
+
+
+def drive_vitamin_e(frames, device, rng=None, count_syncs=False):
+    """One VitaminEVO over the frames on ``device``: (vo, poses, per-frame
+    ms, per-frame host syncs)."""
+    import warnings
+    from tadataka_torch.vo.vitamin_e import VitaminEVO
+    vo = VitaminEVO(frames[0].camera_model, device=device, rng=rng,
+                    **VITAMIN_E_VO)
+    poses, ms, syncs = [], [], []
+    for frame in frames:
+        sync(device)
+        with warnings.catch_warnings(record=True) as caught:
+            if count_syncs:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            poses.append(vo.estimate(frame.image))
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    return vo, poses, ms, syncs
+
+
+def vitamin_e_stage_times(frames, device="cuda", repeats=5):
+    """The median ms of each stage on the last frame (utils/timing.py's
+    marks), the VO copied before it and the last frame run ``repeats``
+    times."""
+    import copy
+    from tadataka_torch.utils.timing import record
+    vo, _, _, _ = drive_vitamin_e(frames[:-1], device, rng=fixed_draws)
+    runs = []
+    for _ in range(repeats + 1):
+        copied = copy.deepcopy(vo)
+        with record() as ms:
+            assert copied.estimate(frames[-1].image) is not None
+        runs.append(ms)
+    return {stage: statistics.median(r.get(stage, 0.0) for r in runs[1:])
+            for stage in VITAMIN_E_STAGES}
+
+
+def vitamin_e_cpu_vs_card(frames, devices=("cpu", "cuda")):
+    """The front end and the VO with the same draws on the CPU and the
+    card: the curvature and its extrema of every frame, ORB's descriptors
+    at every frame's FAST keypoints, every KeypointFrame of
+    ``track_sequence``, and VitaminEVO's poses, keypoint frames and map
+    (on the CPU and twice on the card), bit-equal."""
+    from tadataka_torch.features import Matcher
+    from tadataka_torch.features.brief import extract_features
+    from tadataka_torch.features.curvature import (
+        compute_image_curvature, extract_curvature_extrema)
+    from tadataka_torch.features.orb import orb_descriptors
+    from tadataka_torch.vo.vitamin_e import track_sequence
+    front = {}
+    for device in devices:
+        images = [f.image.to(device) for f in frames]
+        tensors = []
+        for image in images:
+            tensors.append(compute_image_curvature(image))
+            tensors += list(extract_curvature_extrema(image, 98.0, 2048))
+            feats = extract_features(image, 512, VITAMIN_E_VO[
+                "fast_threshold"], 64)
+            tensors += list(orb_descriptors(image, feats.keypoints,
+                                            feats.mask))
+        tracks = track_sequence(images, matcher=Matcher(rng=fixed_draws),
+                                **VITAMIN_E_VO)
+        front[device] = ([t.cpu() for t in tensors], tracks)
+    cpu, card = devices
+    assert all(torch.equal(a, b) for a, b in zip(*(front[d][0]
+                                                    for d in devices)))
+    assert all(np.array_equal(a.ids, b.ids)
+               and np.array_equal(a.coords, b.coords)
+               for a, b in zip(front[cpu][1], front[card][1]))
+    runs = [drive_vitamin_e(frames, d, rng=fixed_draws)
+            for d in (cpu, card, card)]
+
+    def same(a, b):
+        vo_a, poses_a = a[:2]
+        vo_b, poses_b = b[:2]
+        return (all(torch.equal(p.R, q.R) and torch.equal(p.t, q.t)
+                    for p, q in zip(poses_a, poses_b))
+                and all(np.array_equal(x.ids, y.ids)
+                        and np.array_equal(x.coords, y.coords)
+                        for x, y in zip(vo_a.keypoints, vo_b.keypoints))
+                and sorted(vo_a.points) == sorted(vo_b.points)
+                and all(np.array_equal(vo_a.points[k], vo_b.points[k])
+                        for k in vo_a.points))
+    cards_equal, cpu_equal = same(runs[1], runs[2]), same(runs[0], runs[1])
+    log("vitamin_e", f"CPU against card (the same draws): the curvature, "
+        f"its extrema and ORB's descriptors of {len(frames)} frames and "
+        f"every KeypointFrame of track_sequence "
+        f"({[len(k.ids) for k in front[cpu][1]]} tracks) bit-equal; "
+        f"VitaminEVO's poses, keypoint frames and map of "
+        f"{len(runs[0][0].points)} points: two card runs "
+        f"{'bit-equal' if cards_equal else 'DIFFER'}, CPU and card "
+        f"{'bit-equal' if cpu_equal else 'DIFFER'}")
+    assert cards_equal and cpu_equal
+
+
+def phase_vitamin_e(smi):
+    """VitaminEVO at 480x640 on the card: the CPU-card comparison, then a
+    run with the card's own generator gated on the JAX readings, host
+    syncs and ms/frame, and the stage times of the last frame."""
+    from tadataka_torch.metrics import absolute_trajectory_error
+    frames, gt = vitamin_e_frames()
+    vitamin_e_cpu_vs_card(frames)
+    _, _, _, syncs = drive_vitamin_e(frames, "cuda", count_syncs=True)
+    vo, poses, ms, _ = drive_vitamin_e(frames, "cuda")
+    assert all(p is not None for p in poses), poses
+    est = np.stack([p.t.numpy() for p in poses]).astype(np.float64)
+    extent = float(np.linalg.norm(gt[-1] - gt[0]))
+    share = float(absolute_trajectory_error(est, gt.astype(np.float64))
+                  ) / extent
+    stages = vitamin_e_stage_times(frames)
+    log("vitamin_e", f"{len(frames)} frames at {VGA[0]}x{VGA[1]}, focal "
+        f"{VGA_FOCAL}, {VITAMIN_E_TEXTURE} texture, {VITAMIN_E_VO}; "
+        f"steady state (frames 2 on) {statistics.mean(ms[2:]):.2f} "
+        f"ms/frame; per-frame ms: " + ", ".join(f"{m:.1f}" for m in ms)
+        + f" ({smi})")
+    log("vitamin_e", f"tracks per frame {[len(k.ids) for k in vo.keypoints]}"
+        f", map points {len(vo.points)}, host syncs per frame {syncs}")
+    log("vitamin_e", "stages of the last frame, median of 5: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+    ref = JAX_VITAMIN_E
+    log("vitamin_e", f"aligned ATE {share:.5f} of the true extent (gate < "
+        f"{FEATURE_ATE_MARGIN} x JAX's {ref['ate_share']}), map "
+        f"{len(vo.points)} points (gates >= 0.8 x JAX's "
+        f"{ref['map_points']}, > 1000)")
+    assert share < FEATURE_ATE_MARGIN * ref["ate_share"], share
+    assert len(vo.points) >= 0.8 * ref["map_points"]
+    assert len(vo.points) > 1000
 
 
 def main():
@@ -2238,6 +2449,7 @@ def main():
         phase_dvo_cpu_gpu(tum_root)
         phase_dvo(tum_root)
     phase_feature(smi)
+    phase_vitamin_e(smi)
     at48 = timings[("random", 48, 480, 640)]
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s; "
         "ms/plain_ms below: ssd_search (its ring design) at S=48, the SSD "

@@ -14,7 +14,7 @@ from scipy.spatial.transform import Rotation
 
 from tadataka_torch.ba.schur import lm_solve
 from tadataka_torch.core.pose import Pose
-from tadataka_torch.device import resolve_device
+from tadataka_torch.device import resolve_device, upload
 
 
 def can_run_ba(n_viewpoints, n_points, n_visible,
@@ -52,7 +52,7 @@ def run_ba(viewpoint_indices, point_indices, poses, points, keypoints_true,
             np.float32)
 
     def up(x, dtype):
-        return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+        return upload(np.asarray(x), device, dtype)
 
     new_params, new_points, _ = lm_solve(
         up(pose_params, torch.float32), up(points, torch.float32),

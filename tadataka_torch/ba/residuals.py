@@ -1,18 +1,21 @@
 """Bundle-adjustment reprojection residuals and Jacobians (counterpart of
 ``tadataka_tpu/ba/residuals.py``): project(exp(omega) p + t), with the
 2x6 pose and 2x3 point Jacobians from ``torch.func.jacfwd`` under
-``torch.func.vmap`` over the observations."""
+``torch.func.vmap`` over the observations.  The rotation's products sum
+left to right and ``exp_so3`` is device-invariant, so the CPU and the
+card give the same bits."""
 
 import torch
 
 from tadataka_torch.core.projection import pi
+from tadataka_torch.core.rounding import matmul_small
 from tadataka_torch.core.so3 import exp_so3
 
 
 def transform_project(pose_params, point):
     """pose_params = [omega (3), t (3)]; point (3,) -> projected (2,)."""
     omega, t = pose_params[..., :3], pose_params[..., 3:]
-    return pi((exp_so3(omega) @ point[..., None])[..., 0] + t)
+    return pi(matmul_small(exp_so3(omega), point[..., None])[..., 0] + t)
 
 
 pose_jacobian = torch.func.jacfwd(transform_project, argnums=0)

@@ -4,10 +4,14 @@
 The per-observation Jacobian blocks come from ``ba/residuals.py``; the
 normal equations are summed into dense per-point blocks W (N, M, 6, 3);
 the reduced camera system S (6M x 6M) is one contraction over the points.
-The sums over observations take one order on every run (``_scatter_sum``):
-the card's ``index_add_`` adds by atomics, in another order each run, and
-the LM's strict tests at damping near 1e-8 turn such last bits into
-different trials.
+Every sum takes one order on both devices and every run: the sums over
+observations add each row's terms one by one in observation order, the
+JAX package's scatter order (``_scatter_sum``; the card's ``index_add_``
+adds by atomics, in another order each run), the contractions over
+points add pairwise, and the small products sum left to right
+(``core/rounding.py``).  The 3x3 inverses and the reduced system's solve
+run on the host (``core/solvers.py``).  The LM's strict tests at damping
+near 1e-8 would turn any last-bit difference into a different trial.
 The LM schedule (mu / nu, then mu, then mu * nu^k up to ``max_mu``) runs
 on the host: each trial reads one error from the device, and every test
 is made in float32 as the JAX package's ``while_loop`` makes it.
@@ -18,14 +22,17 @@ import torch
 
 from tadataka_torch.ba.residuals import (
     projection_residuals, projection_jacobians)
-from tadataka_torch.core.rounding import fixed_order_sum
+from tadataka_torch.core.rounding import (
+    fixed_order_sum, matmul_small, sum_small)
 from tadataka_torch.core.solvers import inv, solve
 from tadataka_torch.device import resolve_device
+from tadataka_torch.utils.timing import probe
 
 
 def _mean_squared_error(r, weights):
-    return (torch.sum(torch.sum(r * r, dim=-1) * weights)
-            / torch.clamp(torch.sum(weights), min=1.0))
+    sums = fixed_order_sum(torch.stack([sum_small(r * r) * weights,
+                                        weights]))
+    return sums[0] / torch.clamp(sums[1], min=1.0)
 
 
 def _segments(index, counts, K):
@@ -43,7 +50,7 @@ def _segments(index, counts, K):
 
 
 def _layout(viewpoint_indices, point_indices, M, N):
-    """How ``_scatter_sum`` sums on the card: the rows of U and e_cam
+    """How ``_scatter_sum`` sums: the rows of U and e_cam
     (viewpoints), V and e_pt (points) and W (point-viewpoint pairs) as
     ``_segments``, from one host read of the largest row sizes (the
     sizes are counted by an integer scatter-add, exact in any order;
@@ -57,47 +64,46 @@ def _layout(viewpoint_indices, point_indices, M, N):
                  for (i, _), c, k in zip(groups, counts, K))
 
 
-def _scatter_sum(values, index, n, positions):
-    """Sums of values (O, ...) into n rows by index.  On the CPU,
-    ``index_add_`` adds each row's terms one by one in observation order,
-    as the JAX package's scatter does.  On the card each row's terms,
-    gathered by ``positions`` (``_layout``), are summed pairwise by
-    ``fixed_order_sum``: the same bits on every run."""
-    if positions is None:
-        return values.new_zeros((n,) + values.shape[1:]).index_add_(
-            0, index, values)
+def _scatter_sum(values, positions):
+    """Sums of values (O, ...) into the rows of ``positions`` (``_layout``):
+    each row's terms added one by one in observation order, from 0, as
+    ``index_add_`` on the CPU and the JAX package's scatter add them;
+    the same bits on every device and run (one add of all rows per
+    position)."""
     padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
-    return fixed_order_sum(padded[positions].movedim(1, -1))
+    out = values.new_zeros((positions.shape[0],) + values.shape[1:])
+    for k in range(positions.shape[1]):
+        out = out + padded[positions[:, k]]
+    return out
 
 
 def _assemble(poses, points, viewpoint_indices, point_indices, x_true,
               weights, layout=None):
     """(U, V, W, e_cam, e_pt, error) of the current state.  ``layout``:
-    ``_layout`` of the indices, made here on the card if not given."""
+    ``_layout`` of the indices, made here if not given."""
     M = poses.shape[0]
     N = points.shape[0]
-    if layout is None and poses.device.type != "cpu":
+    if layout is None:
         layout = _layout(viewpoint_indices, point_indices, M, N)
-    by_view, by_point, by_pair = layout or (None, None, None)
+    by_view, by_point, by_pair = layout
     r = projection_residuals(poses, points, viewpoint_indices, point_indices,
                              x_true)                       # (O, 2)
     A, B = projection_jacobians(poses, points, viewpoint_indices,
                                 point_indices)             # (O,2,6), (O,2,3)
     w = weights[:, None, None]
-    Aw = A * w
-    Bw = B * w
-    U = _scatter_sum(torch.einsum('oia,oib->oab', Aw, A), viewpoint_indices,
-                     M, by_view)
-    V = _scatter_sum(torch.einsum('oia,oib->oab', Bw, B), point_indices, N,
-                     by_point)
-    W = _scatter_sum(torch.einsum('oia,oib->oab', Aw, B),
-                     point_indices * M + viewpoint_indices, N * M,
-                     by_pair).reshape(N, M, 6, 3)
-    e_cam = _scatter_sum(torch.einsum('oia,oi->oa', Aw, r),
-                         viewpoint_indices, M, by_view)
-    e_pt = _scatter_sum(torch.einsum('oia,oi->oa', Bw, r), point_indices, N,
-                        by_point)
-    return U, V, W, e_cam, e_pt, _mean_squared_error(r, weights)
+    Awt = (A * w).transpose(1, 2)
+    Bwt = (B * w).transpose(1, 2)
+    O = r.shape[0]
+    # the blocks that share a row layout are summed together
+    cam = _scatter_sum(torch.cat([matmul_small(Awt, A).reshape(O, 36),
+                                  matmul_small(Awt, r[..., None])[..., 0]],
+                                 1), by_view)
+    pt = _scatter_sum(torch.cat([matmul_small(Bwt, B).reshape(O, 9),
+                                 matmul_small(Bwt, r[..., None])[..., 0]], 1),
+                      by_point)
+    W = _scatter_sum(matmul_small(Awt, B), by_pair).reshape(N, M, 6, 3)
+    return (cam[:, :36].reshape(M, 6, 6), pt[:, :9].reshape(N, 3, 3), W,
+            cam[:, 36:], pt[:, 9:], _mean_squared_error(r, weights))
 
 
 def _schur_step(U, V, W, e_cam, e_pt, mu):
@@ -107,16 +113,19 @@ def _schur_step(U, V, W, e_cam, e_pt, mu):
     I3 = torch.eye(3, dtype=V.dtype, device=V.device)
     I6 = torch.eye(6, dtype=U.dtype, device=U.device)
     V_inv = inv(V + mu * I3)                   # (N, 3, 3)
-    Y = torch.einsum('nmab,nbc->nmac', W, V_inv)           # (N, M, 6, 3)
+    Y = matmul_small(W, V_inv[:, None])                    # (N, M, 6, 3)
     # S_jk = delta_jk (U_j + mu I) - sum_n Y_nj W_nk^T
-    S = -torch.einsum('njab,nkcb->jakc', Y, W).reshape(6 * M, 6 * M)
+    YW = matmul_small(Y[:, :, None], W[:, None].transpose(-1, -2))
+    S = -fixed_order_sum(YW.permute(1, 3, 2, 4, 0)).reshape(6 * M, 6 * M)
     S = S + torch.block_diag(*(U + mu * I6))
-    rhs = (e_cam.reshape(-1)
-           - torch.einsum('njab,nb->ja', Y, e_pt).reshape(-1))
+    Ye = matmul_small(Y, e_pt[:, None, :, None])[..., 0]  # (N, M, 6)
+    rhs = (e_cam - fixed_order_sum(Ye.permute(1, 2, 0))).reshape(-1)
     dposes = solve(S, rhs).reshape(M, 6)
     # back-substitute the points
-    Wt_dc = torch.einsum('nmab,ma->nb', W, dposes)         # (N, 3)
-    dpoints = torch.einsum('nab,nb->na', V_inv, e_pt - Wt_dc)
+    Wt_dc = sum_small(matmul_small(W.transpose(-1, -2),
+                                   dposes[None, :, :, None])[..., 0]
+                      .transpose(1, 2))                    # (N, 3)
+    dpoints = matmul_small(V_inv, (e_pt - Wt_dc)[..., None])[..., 0]
     return dposes, dpoints
 
 
@@ -130,8 +139,8 @@ def lm_solve(poses, points, viewpoint_indices, point_indices, x_true,
     if weights is None:
         weights = torch.ones(x_true.shape[0], dtype=x_true.dtype,
                              device=x_true.device)
-    layout = (None if poses.device.type == "cpu" else _layout(
-        viewpoint_indices, point_indices, poses.shape[0], points.shape[0]))
+    layout = _layout(viewpoint_indices, point_indices, poses.shape[0],
+                     points.shape[0])
     f32 = np.float32
     nu, max_mu = f32(nu), f32(max_mu)
     abs_thr, rel_thr = f32(absolute_error_threshold), f32(
@@ -151,11 +160,15 @@ def lm_solve(poses, points, viewpoint_indices, point_indices, x_true,
             po, pt, viewpoint_indices, point_indices, x_true, weights,
             layout)
         error0 = f32(error0.item())
+        probe("BA", U=U, V=V, W=W, e_cam=e_cam, e_pt=e_pt, error0=error0)
 
         def try_mu(mu_):
             dpo, dpt = _schur_step(U, V, W, e_cam, e_pt, float(mu_))
             new_po, new_pt = po + dpo, pt + dpt
-            return new_po, new_pt, f32(error_of(new_po, new_pt).item())
+            error = f32(error_of(new_po, new_pt).item())
+            probe("BA", mu=mu_, dposes=dpo, dpoints=dpt, error=error,
+                  accepted=error < error0)
+            return new_po, new_pt, error
 
         po1, pt1, err1 = try_mu(mu / nu)
         if err1 < error0:
@@ -175,7 +188,8 @@ def lm_solve(poses, points, viewpoint_indices, point_indices, x_true,
         cur_err = new_err
         if new_err < abs_thr or rel < rel_thr:
             break
-    return poses, points, torch.tensor(cur_err, device=poses.device)
+    return poses, points, torch.full((), float(cur_err),
+                                     device=poses.device)
 
 
 class LocalBundleAdjustment:

@@ -38,6 +38,16 @@ def _apply_sobel(image, valid_fn, mode):
     raise ValueError(f"unknown border mode {mode!r}")
 
 
+def grad_x(image):
+    """scipy.ndimage.sobel(image, axis=1, mode="reflect")."""
+    return sobel_x(image, mode="reflect")
+
+
+def grad_y(image):
+    """scipy.ndimage.sobel(image, axis=0, mode="reflect")."""
+    return sobel_y(image, mode="reflect")
+
+
 def _central_diff(a, dim):
     """Central differences along ``dim`` with one-sided edges."""
     a = a.movedim(dim, 0)
@@ -51,3 +61,8 @@ def _central_diff(a, dim):
 def np_gradient_2d(image):
     """np.gradient for 2-D images, returned as (DX, DY)."""
     return _central_diff(image, 1), _central_diff(image, 0)
+
+
+def gradient1d(x):
+    """Forward differences along the last axis: x[1:] - x[:-1]."""
+    return x[..., 1:] - x[..., :-1]

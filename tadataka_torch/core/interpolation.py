@@ -1,7 +1,9 @@
 """Bilinear image interpolation at float [x, y] coordinates (counterpart
-of ``tadataka_tpu/core/interpolation.py::interpolate``)."""
+of ``tadataka_tpu/core/interpolation.py``)."""
 
 import torch
+
+from tadataka_torch.core.image_range import is_in_image_range
 
 
 def interpolate(image, coordinates):
@@ -27,3 +29,11 @@ def interpolate(image, coordinates):
     v11 = flat[y1 * W + x1]
     return ((1.0 - ax) * (1.0 - ay) * v00 + ax * (1.0 - ay) * v01
             + (1.0 - ax) * ay * v10 + ax * ay * v11)
+
+
+def interpolate_checked(image, coordinates, fill=0.0):
+    """Bilinear samples and the in-range mask (float-inclusive [0, W-1] x
+    [0, H-1]); out-of-range lanes get ``fill``.  Returns (values, mask)."""
+    mask = is_in_image_range(coordinates, image.shape)
+    values = interpolate(image, coordinates)
+    return torch.where(mask, values, fill), mask

@@ -6,9 +6,9 @@ from typing import NamedTuple
 
 import torch
 
-from tadataka_torch.core.so3 import exp_so3
-from tadataka_torch.core.se3 import exp_se3_t
-from tadataka_torch.core.transforms import motion_matrix
+from tadataka_torch.core.so3 import exp_so3, log_so3
+from tadataka_torch.core.se3 import exp_se3_t, log_se3
+from tadataka_torch.core.transforms import motion_matrix, transform_points
 
 
 class Pose(NamedTuple):
@@ -19,6 +19,10 @@ class Pose(NamedTuple):
     def T(self):
         """4x4 motion matrix."""
         return motion_matrix(self.R, self.t)
+
+    @property
+    def rotvec(self):
+        return log_so3(self.R)
 
     @classmethod
     def identity(cls, batch=(), dtype=torch.float32, device="cpu"):
@@ -39,6 +43,10 @@ class Pose(NamedTuple):
     def from_matrix(cls, T):
         return cls(T[..., :3, :3], T[..., :3, 3])
 
+    def se3(self):
+        """xi = [v, omega] of the pose (``log_se3`` of its matrix)."""
+        return log_se3(self.T)
+
     def inv(self):
         Rt = self.R.transpose(-1, -2)
         return Pose(Rt, -(Rt @ self.t[..., None])[..., 0])
@@ -46,3 +54,13 @@ class Pose(NamedTuple):
     def __mul__(self, other):
         return Pose(self.R @ other.R,
                     (self.R @ other.t[..., None])[..., 0] + self.t)
+
+    def apply(self, P):
+        """Transform 3D points (..., 3)."""
+        return transform_points(self.T, P)
+
+    def isclose(self, other, atol=1e-5):
+        """Whether R and t are within ``atol`` (and 1e-5 relative, as
+        ``jnp.allclose``) of the other pose's."""
+        return (torch.allclose(self.R, other.R, rtol=1e-5, atol=atol)
+                and torch.allclose(self.t, other.t, rtol=1e-5, atol=atol))

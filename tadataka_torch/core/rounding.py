@@ -14,10 +14,12 @@ mapping path a last bit can move an SSD argmin by a plane:
   on about 0.6% of inputs; the card's is correctly rounded.
   :func:`sqrt` takes the CPU's root in float64, rounds it to float32
   and corrects it against the exact squares of the rounding midpoints.
-- ``torch.tan`` and ``torch.atan`` round by device library.  :func:`tan`
-  and :func:`atan` reduce the argument and sum a Taylor polynomial in
+- ``torch.sin``, ``cos``, ``tan``, ``atan`` and ``atan2`` round by
+  device library.  :func:`sin`, :func:`cos`, :func:`tan`, :func:`atan`
+  and :func:`atan2` reduce the argument and sum a Taylor polynomial in
   float64 with elementwise products, sums and true divisions, each
   correctly rounded by IEEE on every device, then round to float32.
+  They are differentiable under ``torch.func.jacfwd`` and ``vmap``.
 
 Sums over many elements go through :func:`fixed_order_sum`, one
 pairwise order on every device.
@@ -47,8 +49,9 @@ _atan_tables = {}   # device -> _ATAN_TABLE as a float64 tensor there
 
 
 def as_divisor(value, like):
-    """``value`` as a 0-d tensor of ``like``'s dtype and device."""
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    """``value`` as a 0-d tensor of ``like``'s dtype and device, filled
+    there (a copy from the host would synchronize the card)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def fixed_order_sum(x):
@@ -62,6 +65,34 @@ def fixed_order_sum(x):
         half = x.shape[-1] // 2
         x = x[..., :half] + x[..., half:]
     return x[..., 0]
+
+
+def sum_small(x):
+    """Sums of x (..., k) over its last axis for a small k, left to
+    right, each sum rounded on its own."""
+    out = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        out = out + x[..., i]
+    return out
+
+
+def mean(x, dim):
+    """Mean of x over a short ``dim`` (a few points): the sum left to
+    right (:func:`sum_small`, the JAX package's order for so few)
+    divided by the count (a true division on every device)."""
+    total = sum_small(x.movedim(dim, -1))
+    return total / as_divisor(x.shape[dim], total)
+
+
+def norm(v):
+    """Euclidean norm of v (..., k) over its last axis (small k): the
+    squares summed left to right, then the correctly rounded root."""
+    return sqrt(sum_small(v * v))
+
+
+def dot(a, b):
+    """Sums of a * b over the last axis (small), left to right."""
+    return sum_small(a * b)
 
 
 def matmul_small(A, B):
@@ -79,6 +110,16 @@ def sqrt(x):
     if x.device.type == "cpu":
         return _corrected_sqrt(x)
     return torch.sqrt(x)
+
+
+def sqrt_positive(x):
+    """:func:`sqrt` of x > 0 with a derivative under ``torch.func``
+    transforms: the value is the correctly rounded root, and a tangent
+    t becomes t * (0.5 / root), the same bits on every device (the
+    root's own CPU form has no derivative)."""
+    root = sqrt(x.detach())
+    scaled = x * (as_divisor(0.5, root) / root)
+    return root + (scaled - scaled.detach())
 
 
 def _corrected_sqrt(x):
@@ -108,6 +149,49 @@ def _horner(z, coeffs):
     return out
 
 
+def _sin_cos_reduced(x):
+    """(sin r, cos r, q) in float64 for x = r + k pi/2, |r| <= pi/4 and
+    q = k mod 4 (the argument reduced as in :func:`tan`, signed, so that
+    forward-mode derivatives pass through r)."""
+    xd = x.double()
+    k = torch.round(xd * _2_OVER_PI)
+    r = (xd - k * _PIO2_HI) - k * _PIO2_LO
+    z = r * r
+    return (r + (r * z) * _horner(z, _SIN), 1.0 + z * _horner(z, _COS),
+            torch.remainder(k, 4.0))
+
+
+def _quadrant(q, first, second):
+    """The value in quadrant q (0..3) of a function that is ``first`` in
+    quadrant 0, ``second`` in quadrant 1 and their negatives in 2 and 3."""
+    return torch.where(q == 0.0, first, torch.where(
+        q == 1.0, second, torch.where(q == 2.0, -first, -second)))
+
+
+def sincos(x):
+    """(sin x, cos x) of a float32 tensor from one reduction, the same
+    bits as :func:`sin` and :func:`cos`."""
+    s, c, q = _sin_cos_reduced(x)
+    # sin(+-0) = +-0 (the reduction gives r = +0 for x = -0)
+    return (torch.where(x == 0.0, x, _quadrant(q, s, c).to(x.dtype)),
+            _quadrant(q, c, -s).to(x.dtype))
+
+
+def sin(x):
+    """sin of a float32 tensor, the same bits on every device: sin(r + k
+    pi/2) is sin r, cos r, -sin r or -cos r by k mod 4, rounded to
+    float32 (accurate for |x| < 2^20 pi/2).  Within one float32 ulp of
+    the correctly rounded sin; its derivative (cos r, ... through r) is
+    within one ulp of cos x."""
+    return sincos(x)[0]
+
+
+def cos(x):
+    """cos of a float32 tensor, the same bits on every device (see
+    :func:`sin`): cos r, -sin r, -cos r or sin r by k mod 4."""
+    return sincos(x)[1]
+
+
 def tan(x):
     """tan of a float32 tensor, the same bits on every device: the
     argument reduced by k pi/2 in float64 (accurate for |x| < 2^20
@@ -126,28 +210,51 @@ def tan(x):
     return torch.where(torch.signbit(x), -t, t).to(x.dtype)
 
 
-def atan(x):
-    """atan of a float32 tensor, the same bits on every device: b = |x|
-    or 1 / |x| (whichever is at most 1), atan b = atan(j/8) + atan(t)
-    with j = round(8 b) and t = (b - j/8) / (1 + b j/8) (|t| <= 1/16)
-    by its Taylor polynomial, pi/2 - atan b where |x| > 1, all in
-    float64 with true divisions, rounded to float32.  Within one
-    float32 ulp of the correctly rounded atan; odd, atan(+-inf) =
-    +-pi/2."""
-    a = x.abs().double()
-    big = a > 1.0
-    b = torch.where(big, torch.ones_like(a) / a, a)
+def _atan_unit(b):
+    """atan b in float64 for float64 b in [0, 1] (NaN: NaN): atan(j/8) +
+    atan(t) with j = round(8 b) and t = (b - j/8) / (1 + b j/8) (|t| <=
+    1/16) by its Taylor polynomial."""
     j = torch.round(torch.where(b <= 1.0, b, 0.0) * 8.0)   # NaN: j = 0
     c = j * 0.125
     t = (b - c) / (1.0 + b * c)
     z = t * t
-    table = _atan_tables.get(a.device)
+    table = _atan_tables.get(b.device)
     if table is None:
-        table = _atan_tables[a.device] = torch.tensor(
-            _ATAN_TABLE, dtype=torch.float64, device=a.device)
-    y = table[j.long()] + (t + (t * z) * _horner(z, _ATAN))
+        table = _atan_tables[b.device] = torch.tensor(
+            _ATAN_TABLE, dtype=torch.float64, device=b.device)
+    return table[j.long()] + (t + (t * z) * _horner(z, _ATAN))
+
+
+def atan(x):
+    """atan of a float32 tensor, the same bits on every device: atan b of
+    b = |x| or 1 / |x| (whichever is at most 1) by :func:`_atan_unit`,
+    pi/2 - atan b where |x| > 1, all in float64 with true divisions,
+    rounded to float32.  Within one float32 ulp of the correctly
+    rounded atan; odd, atan(+-inf) = +-pi/2."""
+    a = x.abs().double()
+    big = a > 1.0
+    y = _atan_unit(torch.where(big, torch.ones_like(a) / a, a))
     y = torch.where(big, math.pi / 2 - y, y)
     return torch.where(torch.signbit(x), -y, y).to(x.dtype)
+
+
+def atan2(y, x):
+    """atan2 of float32 tensors, the same bits on every device: the
+    angle of (x, y) from atan b of b = min(|x|, |y|) / max(|x|, |y|) in
+    float64 (:func:`_atan_unit`), taken to its octant, rounded to
+    float32.  Within one float32 ulp of the correctly rounded atan2;
+    atan2(+-0, x) is +-0 for x >= +0 and +-pi for x <= -0, as IEEE
+    has it."""
+    yd, xd = y.double(), x.double()
+    ay, ax = yd.abs(), xd.abs()
+    steep = ay > ax
+    num = torch.where(steep, ax, ay)
+    den = torch.where(steep, ay, ax)
+    b = torch.where(den == 0.0, torch.zeros_like(den), num / den)
+    a = _atan_unit(b)
+    a = torch.where(steep, math.pi / 2 - a, a)
+    a = torch.where(torch.signbit(xd), math.pi - a, a)
+    return torch.where(torch.signbit(yd), -a, a).to(y.dtype)
 
 
 def cross3(a, b):

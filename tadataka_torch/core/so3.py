@@ -1,8 +1,18 @@
 """SO(3): hat map, exponential and logarithm (counterpart of
 ``tadataka_tpu/core/so3.py``): closed-form Rodrigues with the same
-small-angle Taylor branches, and the branch-free quaternion logarithm."""
+small-angle Taylor branches, and the branch-free quaternion logarithm.
+
+Both maps give the same bits on the CPU and the card: sin, cos, atan2
+and the roots come from ``core/rounding.py``, the 3x3 products and the
+norms sum left to right, and every division is a true one.  The
+exponential stays differentiable under ``torch.func.jacfwd``.
+"""
 
 import torch
+
+from tadataka_torch.core.rounding import (
+    as_divisor, atan2, matmul_small, norm, sincos, sqrt, sqrt_positive,
+    sum_small)
 
 # Taylor switchover, as in the JAX package
 _SMALL = 1e-5
@@ -22,9 +32,9 @@ def hat_so3(v):
 def _theta_terms(rotvec):
     """(small, sq, safe_theta): theta^2, and theta clamped away from 0
     for the trigonometric branches."""
-    sq = torch.sum(rotvec * rotvec, dim=-1)
+    sq = sum_small(rotvec * rotvec)
     small = sq < _SMALL * _SMALL
-    safe_theta = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+    safe_theta = sqrt_positive(torch.where(small, torch.ones_like(sq), sq))
     return small, sq, safe_theta
 
 
@@ -32,12 +42,26 @@ def exp_so3(rotvec):
     """Rodrigues: exp([omega]_x) for rotvec (..., 3) -> (..., 3, 3)."""
     small, sq, safe = (x[..., None, None] for x in _theta_terms(rotvec))
     K = hat_so3(rotvec)
-    KK = K @ K
+    KK = matmul_small(K, K)
     eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device)
-    a = torch.where(small, 1.0 - sq / 6.0, torch.sin(safe) / safe)
-    b = torch.where(small, 0.5 - sq / 24.0,
-                    (1.0 - torch.cos(safe)) / (safe * safe))
+    sin_t, cos_t = sincos(safe)
+    a = torch.where(small, 1.0 - sq / as_divisor(6.0, sq), sin_t / safe)
+    b = torch.where(small, 0.5 - sq / as_divisor(24.0, sq),
+                    (1.0 - cos_t) / (safe * safe))
     return eye + a * K + b * KK
+
+
+def exp_so3_small(rotvec):
+    """exp_so3's small-angle branch, I + (1 - theta^2 / 6) K + (1/2 -
+    theta^2 / 24) K^2: the value and the derivatives exp_so3 gives where
+    theta < 1e-5 (as at rotvec = 0, where a Gauss-Newton step
+    differentiates it), without evaluating the trigonometric branch."""
+    sq = sum_small(rotvec * rotvec)[..., None, None]
+    K = hat_so3(rotvec)
+    eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device)
+    a = 1.0 - sq / as_divisor(6.0, sq)
+    b = 0.5 - sq / as_divisor(24.0, sq)
+    return eye + a * K + b * matmul_small(K, K)
 
 
 def log_so3(R):
@@ -58,7 +82,7 @@ def _quat_from_matrix(R):
     qz2 = 1.0 - m00 - m11 + m22
 
     def safe_sqrt(x):
-        return torch.sqrt(torch.clamp(x, min=1e-24))
+        return sqrt(torch.clamp(x, min=1e-24))
 
     sw = safe_sqrt(qw2) * 2.0
     cand_w = torch.stack([sw / 4.0, (m21 - m12) / sw, (m02 - m20) / sw,
@@ -78,14 +102,28 @@ def _quat_from_matrix(R):
                     torch.where(best == 1, cand_x,
                                 torch.where(best == 2, cand_y, cand_z)))
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
-    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q / norm(q)[..., None]
 
 
 def _rotvec_from_quat(q):
     w = torch.clamp(q[..., 0], -1.0, 1.0)
     xyz = q[..., 1:]
-    s = torch.linalg.norm(xyz, dim=-1)
-    theta = 2.0 * torch.atan2(s, w)
-    scale = torch.where(s < _SMALL, 2.0 + theta * theta / 12.0,
+    s = norm(xyz)
+    theta = 2.0 * atan2(s, w)
+    scale = torch.where(s < _SMALL,
+                        2.0 + theta * theta / as_divisor(12.0, theta),
                         theta / torch.clamp(s, min=1e-24))
     return xyz * scale[..., None]
+
+
+def is_rotation_matrix(R, atol=1e-5):
+    """Whether R (..., 3, 3) is orthonormal with determinant 1 within
+    ``atol``, as one bool for the whole batch (``jnp.allclose``'s
+    |a - b| <= atol + 1e-5 |b|)."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    one = torch.ones((), dtype=R.dtype, device=R.device)
+    orth = torch.allclose(R @ R.transpose(-1, -2), eye.expand(R.shape),
+                          rtol=1e-5, atol=atol)
+    det = torch.allclose(torch.linalg.det(R), one.expand(R.shape[:-2]),
+                         rtol=1e-5, atol=atol)
+    return orth and det

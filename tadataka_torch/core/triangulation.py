@@ -1,10 +1,13 @@
 """Triangulation: closed-form two-view depth and batched DLT (counterpart
 of ``tadataka_tpu/core/triangulation.py``).  The (n_points, 2 n_views, 4)
-DLT stack goes through one batched SVD."""
+DLT stack goes through one batched SVD, on the host
+(``core/solvers.py``); the depths sum their products left to right, so
+the CPU and the card give the same bits."""
 
 import torch
 
-from tadataka_torch.core.solvers import solve
+from tadataka_torch.core.rounding import dot
+from tadataka_torch.core.solvers import on_host, solve
 from tadataka_torch.core.transforms import (
     to_homogeneous, get_rotation, get_translation)
 
@@ -34,15 +37,16 @@ def calc_depth0_poses(pose_w0, pose_w1, x0, x1):
 
 
 def _dlt_solution(A):
-    """Points (N, 3) from the DLT stacks A (N, rows, 4): the smallest
-    right singular vector, dehomogenized; inf where w ~ 0."""
-    _, _, vh = torch.linalg.svd(A, full_matrices=A.shape[-2] < 4)
-    X = vh[:, -1, :]
-    w = X[:, 3]
+    """Points (..., N, 3) from the DLT stacks A (..., N, rows, 4): the
+    smallest right singular vector, dehomogenized; inf where w ~ 0."""
+    X = on_host(lambda a: torch.linalg.svd(
+        a, full_matrices=a.shape[-2] < 4)[2][..., -1, :], A)
+    w = X[..., 3]
     degenerate = torch.abs(w) < 1e-12
     safe_w = torch.where(degenerate, torch.ones_like(w), w)
-    points = X[:, :3] / safe_w[:, None]
-    return torch.where(degenerate[:, None], float("inf"), points), degenerate
+    points = X[..., :3] / safe_w[..., None]
+    return (torch.where(degenerate[..., None], float("inf"), points),
+            degenerate)
 
 
 def _dlt_rows(R, t, kp):
@@ -56,17 +60,19 @@ def _dlt_rows(R, t, kp):
 def linear_triangulation(rotations, translations, keypoints):
     """Batched N-view DLT triangulation.
 
-    rotations (n_views, 3, 3) and translations (n_views, 3) world ->
-    camera; keypoints (n_views, n_points, 2) normalized.  Returns points
-    (n_points, 3) (inf where degenerate) and depths (n_views, n_points)
-    (NaN where degenerate)."""
-    V, N = keypoints.shape[:2]
-    A = _dlt_rows(rotations[:, None], translations[:, None], keypoints)
-    A = A.transpose(0, 1).reshape(N, 2 * V, 4)
+    rotations (..., n_views, 3, 3) and translations (..., n_views, 3)
+    world -> camera; keypoints (..., n_views, n_points, 2) normalized.
+    Returns points (..., n_points, 3) (inf where degenerate) and depths
+    (..., n_views, n_points) (NaN where degenerate)."""
+    V, N = keypoints.shape[-3:-1]
+    A = _dlt_rows(rotations[..., None, :, :], translations[..., None, :],
+                  keypoints)
+    A = A.transpose(-4, -3).reshape(A.shape[:-4] + (N, 2 * V, 4))
     points, degenerate = _dlt_solution(A)
-    depths = (torch.einsum('vd,nd->vn', rotations[:, 2], points)
-              + translations[:, 2, None])
-    return points, torch.where(degenerate[None, :], float("nan"), depths)
+    depths = (dot(rotations[..., :, None, 2, :], points[..., None, :, :])
+              + translations[..., 2, None])
+    return points, torch.where(degenerate[..., None, :], float("nan"),
+                               depths)
 
 
 def two_view_triangulation(pose0w, pose1w, keypoints0, keypoints1):
@@ -85,8 +91,8 @@ def pairwise_triangulation(R0, t0, R1, t1, keypoints0, keypoints1):
                    _dlt_rows(R1.expand(N, 3, 3), t1.expand(N, 3),
                              keypoints1)], dim=1)
     points, degenerate = _dlt_solution(A)
-    d0 = torch.einsum('nd,nd->n', R0[:, 2, :], points) + t0[:, 2]
-    d1 = points @ R1[2] + t1[2]
+    d0 = dot(R0[:, 2, :], points) + t0[:, 2]
+    d1 = dot(points, R1[2]) + t1[2]
     depths = torch.stack([d0, d1])
     return points, torch.where(degenerate[None, :], float("nan"), depths)
 

@@ -10,6 +10,7 @@ intersection and the plane's texture at that point.
 
 import math
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +32,11 @@ def default_texture(X, Y):
          + 0.25 * torch.cos(7.3 * X - 1.9) * torch.cos(5.9 * Y + 0.3)
          + 0.125 * torch.sin(13.7 * X + 2.7) * torch.cos(11.1 * Y - 0.8))
     return 0.5 + 0.25 * v
+
+
+class PlaneScene(NamedTuple):
+    plane_origin: torch.Tensor  # (3,)
+    plane_normal: torch.Tensor  # (3,), unit
 
 
 def render_plane_scene(camera_model, pose_wc, image_shape,

@@ -8,6 +8,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from tadataka_torch.device import constant
+
 from tadataka_torch.features.detector import (
     Features, detect_fast, separable_blur)
 
@@ -49,7 +51,7 @@ def brief_descriptors(image, keypoints, mask, patch_size=PATCH_SIZE,
     H, W = image.shape
     smoothed = _smooth(image)
     half = patch_size // 2
-    pos0, pos1 = (torch.as_tensor(p, device=image.device)
+    pos0, pos1 = (constant(p, image.device)
                   for p in _uniform_pattern(descriptor_size, patch_size))
 
     kx = torch.round(keypoints[:, 0]).to(torch.int32)

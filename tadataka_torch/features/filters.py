@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from tadataka_torch.core.rounding import as_divisor
-from tadataka_torch.core.solvers import inv, solve_nullspace
+from tadataka_torch.core.solvers import inv, solve_nullspace, svd
 from tadataka_torch.core.transforms import to_homogeneous
 
 # chi2.ppf(0.95, dof=2)
@@ -67,7 +67,7 @@ def _zca_whiten(X, mask):
     mean = torch.sum(X * w, dim=-2) / n
     Xc = (X - mean[..., None, :]) * w
     C = (Xc.transpose(-1, -2) @ Xc) / torch.clamp(n - 1.0, min=1.0)[..., None]
-    U, s, _ = torch.linalg.svd(C)
+    U, s, _ = svd(C)
     S = 1.0 / (torch.sqrt(s) + EPSILON)
     ZCA = (U * S[..., None, :]) @ U.transpose(-1, -2)
     return (X - mean[..., None, :]) @ ZCA.transpose(-1, -2)

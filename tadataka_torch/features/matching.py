@@ -84,7 +84,7 @@ def match_descriptors_guided(descriptors1, descriptors2, mask1, mask2,
     dist = _masked_distances(descriptors1, descriptors2, mask1, mask2)
     diff = predicted2[..., :, None, :] - keypoints2[..., None, :, :]
     sq = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
-    r = torch.as_tensor(radius, dtype=sq.dtype, device=sq.device)
+    r = torch.full((), radius, dtype=sq.dtype, device=sq.device)
     dist = torch.where(sq <= r * r, dist, _BIG)
     best2, best_d, second_d, valid = _nearest(dist, mask1, cross_check)
     if max_ratio < 1.0:

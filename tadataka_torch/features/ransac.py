@@ -12,15 +12,23 @@ draws ``jax.random.uniform(key, (n_trials, n_samples))`` from fixed keys;
 a callable can hand the port those very draws.  Batched over leading dims
 of the point sets; a batch (B, N) takes a list of B sites, one for each
 problem's draws.
+
+The same bits on the CPU and the card: the 8-point fit's SVDs run on the
+host (``core/solvers.py``), products of 3-vectors sum left to right,
+means and norms in a fixed order, roots correctly rounded
+(``core/rounding.py``).
 """
 
 import numpy as np
 import torch
 
-from tadataka_torch.core.rounding import as_divisor
-from tadataka_torch.core.solvers import solve, solve_nullspace
+from tadataka_torch.core.rounding import (
+    as_divisor, dot, matmul_small, mean, norm, sqrt)
+from tadataka_torch.core.solvers import nullspace_vector, on_host, solve
 from tadataka_torch.core.transforms import to_homogeneous
+from tadataka_torch.device import upload
 from tadataka_torch.features.filters import SQRT2, hartley_matrix
+from tadataka_torch.utils.timing import probe
 
 DEFAULT_TRIALS = 128
 
@@ -41,8 +49,7 @@ def uniform_draws(rng, site, shape, device):
                             for s in site])
     if isinstance(rng, torch.Generator):
         return torch.rand(shape, generator=rng, device=device)
-    return torch.as_tensor(np.array(rng(site, tuple(shape)), np.float32),
-                           device=device)
+    return upload(np.array(rng(site, tuple(shape)), np.float32), device)
 
 
 def _sample_valid_indices(r, mask):
@@ -69,11 +76,10 @@ def take_rows(x, idx):
 
 def _normalize_points(points):
     """Hartley normalization: zero mean, mean distance sqrt(2)."""
-    mean = torch.mean(points, dim=-2)
-    centered = points - mean[..., None, :]
-    scale = as_divisor(SQRT2, points) / (torch.mean(
-        torch.linalg.vector_norm(centered, dim=-1), dim=-1) + 1e-12)
-    return centered * scale[..., None, None], hartley_matrix(scale, mean)
+    center = mean(points, -2)
+    centered = points - center[..., None, :]
+    scale = as_divisor(SQRT2, points) / (mean(norm(centered), -1) + 1e-12)
+    return centered * scale[..., None, None], hartley_matrix(scale, center)
 
 
 def rank2(F):
@@ -81,6 +87,13 @@ def rank2(F):
     U, s, Vt = torch.linalg.svd(F)
     s = torch.cat([s[..., :2], torch.zeros_like(s[..., 2:])], dim=-1)
     return (U * s[..., None, :]) @ Vt
+
+
+def rank2_nullspace(A):
+    """rank2 of the null vector of A (..., m, 9) as a 3x3 matrix: both
+    SVDs in one host call."""
+    return on_host(lambda a: rank2(nullspace_vector(a).reshape(
+        a.shape[:-2] + (3, 3))), A)
 
 
 def _eight_point(kp1, kp2):
@@ -91,8 +104,8 @@ def _eight_point(kp1, kp2):
     u2, v2 = x2[..., 0], x2[..., 1]
     A = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2,
                      u1, v1, torch.ones_like(u1)], dim=-1)
-    F = solve_nullspace(A).reshape(A.shape[:-2] + (3, 3))
-    F = T2.transpose(-1, -2) @ rank2(F) @ T1
+    F = matmul_small(matmul_small(T2.transpose(-1, -2), rank2_nullspace(A)),
+                     T1)
     f22 = F[..., 2:3, 2:3]
     return F / (f22 + torch.where(torch.abs(f22) < 1e-12, 1e-12, 0.0))
 
@@ -102,18 +115,20 @@ def sampson_distance(F, kp1, kp2):
     (..., 3, 3) and matches (..., N, 2)."""
     x1 = to_homogeneous(kp1)
     x2 = to_homogeneous(kp2)
-    Fx1 = x1 @ F.transpose(-1, -2)
-    Ftx2 = x2 @ F
-    num = torch.sum(x2 * Fx1, dim=-1) ** 2
+    Fx1 = matmul_small(x1, F.transpose(-1, -2))
+    Ftx2 = matmul_small(x2, F)
+    num = dot(x2, Fx1) ** 2
     den = (Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2
            + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2)
     return num / (den + 1e-12)
 
 
-def _best_trial(models, inliers):
+def _best_trial(models, inliers, site=None):
     """The model of the first trial with the most inliers: models (..., T,
     a, b), inliers (..., T, N)."""
-    best = torch.argmax(torch.sum(inliers, dim=-1), dim=-1)
+    counts = torch.sum(inliers, dim=-1)
+    best = torch.argmax(counts, dim=-1)
+    probe(f"RANSAC {site}", models=models, trial_inliers=counts, best=best)
     index = best[..., None, None, None].expand(
         best.shape + (1,) + models.shape[-2:])
     return torch.gather(models, -3, index)[..., 0, :, :]
@@ -127,10 +142,11 @@ def ransac_fundamental(kp1, kp2, mask, rng, residual_threshold=1.0,
                       kp1.device)
     samples = _sample_valid_indices(r, mask)
     Fs = _eight_point(take_rows(kp1, samples), take_rows(kp2, samples))
-    d = torch.sqrt(sampson_distance(Fs, kp1[..., None, :, :],
-                                    kp2[..., None, :, :]))
-    F_best = _best_trial(Fs, mask[..., None, :] & (d < residual_threshold))
-    d = torch.sqrt(sampson_distance(F_best, kp1, kp2))
+    d = sqrt(sampson_distance(Fs, kp1[..., None, :, :],
+                              kp2[..., None, :, :]))
+    F_best = _best_trial(Fs, mask[..., None, :] & (d < residual_threshold),
+                         site)
+    d = sqrt(sampson_distance(F_best, kp1, kp2))
     return F_best, mask & (d < residual_threshold)
 
 
@@ -153,8 +169,8 @@ def ransac_affine(kp1, kp2, mask, rng, residual_threshold=1.0,
     Ms = _fit_affine(take_rows(kp1, samples), take_rows(kp2, samples))
 
     def distances(M, p1, p2):
-        pred = to_homogeneous(p1) @ M.transpose(-1, -2)
-        return torch.linalg.vector_norm(pred[..., :2] - p2, dim=-1)
+        pred = matmul_small(to_homogeneous(p1), M.transpose(-1, -2))
+        return norm(pred[..., :2] - p2)
 
     d = distances(Ms, kp1[..., None, :, :], kp2[..., None, :, :])
     M_best = _best_trial(Ms, mask[..., None, :] & (d < residual_threshold))

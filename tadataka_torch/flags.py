@@ -5,6 +5,8 @@ A flag map is an int32 tensor; consumers mask on ``flag == SUCCESS``.
 
 from enum import IntEnum
 
+import torch
+
 
 class Flag(IntEnum):
     SUCCESS = 0
@@ -18,3 +20,17 @@ class Flag(IntEnum):
     NEGATIVE_REF_DEPTH = -8
     NOT_PROCESSED = -9
 
+
+
+def success_mask(flag_map):
+    """Boolean mask of the lanes that completed successfully."""
+    return flag_map == int(Flag.SUCCESS)
+
+
+def flag_histogram(flag_map):
+    """Count of each flag value, (n_flags,) int64 indexed by -flag: index
+    0 counts SUCCESS, index k counts flag value -k."""
+    idx = -flag_map.to(torch.int64).reshape(-1)
+    return torch.zeros(len(Flag), dtype=torch.int64,
+                       device=flag_map.device).index_add_(
+        0, idx, torch.ones_like(idx))

@@ -94,6 +94,40 @@ def state_from_numpy(pose_R, pose_t, depth_map, variance_map, age_map,
         None if flag_map is None else tensor(flag_map, device, torch.int32))
 
 
+def keypoint_frame_from_numpy(ids, coords):
+    """A VITAMIN-E KeypointFrame (host arrays: int64 ids, float32 [x, y])."""
+    from tadataka_torch.vo.vitamin_e import KeypointFrame
+    return KeypointFrame(np.asarray(ids, np.int64),
+                         np.asarray(coords, np.float32))
+
+
+def affine_from_numpy(matrix, device="cpu"):
+    """An AffineTransform from its (3, 3) matrix."""
+    from tadataka_torch.features.flow import AffineTransform
+    return AffineTransform(tensor(matrix, device))
+
+
+def vitamin_e_state_from_numpy(vo, poses_cw, keypoints, features, points,
+                               first_obs, tri_gap):
+    """Carry a VITAMIN-E VO's state into the port's ``VitaminEVO`` ``vo``
+    (VITAMIN-E has no weights; its state is what a frame reads): the
+    world -> camera poses (objects with fields R and t), the keypoint
+    frames (objects with fields ids and coords), the latest frame's
+    detector features (keypoints, descriptors, mask), the points {track
+    id: (3,)}, the first observations {track id: (frame, (2,) xy)} and
+    the triangulation gaps {track id: frames}.  Returns ``vo``."""
+    vo.poses_cw = poses_from_numpy(poses_cw)
+    vo.keypoints = [keypoint_frame_from_numpy(k.ids, k.coords)
+                    for k in keypoints]
+    vo._features = features_from_numpy(*features, device=vo.device)
+    vo.points = {int(k): np.asarray(v, np.float32)
+                 for k, v in points.items()}
+    vo._first_obs = {int(k): (int(j), np.asarray(xy, np.float32))
+                     for k, (j, xy) in first_obs.items()}
+    vo._tri_gap = {int(k): int(v) for k, v in tri_gap.items()}
+    return vo
+
+
 def to_numpy(obj):
     """Tensors -> numpy arrays, through (named) tuples and lists."""
     if isinstance(obj, torch.Tensor):

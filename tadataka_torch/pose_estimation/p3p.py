@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from tadataka_torch.core.solvers import kabsch_rotation
+
 NEWTON_POLISH_ITERS = 10
 
 
@@ -36,7 +38,7 @@ def _max_real_cubic_root(b, c, d):
     m = torch.sqrt(torch.clamp(-p / 3.0, min=1e-30))
     arg = torch.clamp(3.0 * q / (2.0 * p * m), -1.0, 1.0)
     theta = torch.arccos(arg) / 3.0
-    ks = torch.tensor([0.0, 1.0, 2.0], dtype=b.dtype, device=b.device)
+    ks = torch.arange(3, dtype=b.dtype, device=b.device)
     roots_trig = 2.0 * m[..., None] * torch.cos(
         theta[..., None] - 2.0 * math.pi * ks / 3.0)
     root_neg = torch.max(roots_trig, dim=-1)[0]
@@ -94,11 +96,7 @@ def _kabsch(P_world, Q_cam):
     cc = torch.mean(Q_cam, dim=-2)
     H = (P_world - cw[..., None, :]).transpose(-1, -2) @ (
         Q_cam - cc[..., None, :])
-    U, _, Vt = torch.linalg.svd(H)
-    V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
-    d = torch.sign(torch.linalg.det(V @ Ut))
-    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
-    R = (V * D[..., None, :]) @ Ut
+    R = kabsch_rotation(H)      # the SVD on the host
     return R, cc - (R @ cw[..., None])[..., 0]
 
 

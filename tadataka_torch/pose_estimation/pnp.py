@@ -3,20 +3,29 @@
 P3P or 6-point DLT hypotheses, run as one batch, then a masked
 Gauss-Newton refinement on the inliers.  Keypoints are NORMALIZED image
 coordinates.  The Gauss-Newton Jacobian comes from
-``torch.func.jacfwd`` under ``torch.func.vmap`` over the batch."""
+``torch.func.jacfwd`` under ``torch.func.vmap`` over the batch.
+
+The same bits on the CPU and the card: the fits' factorizations and the
+Gauss-Newton's 6x6 solves, with each step's rotation, run on the host
+(``core/solvers.py``; one host synchronization a Gauss-Newton step),
+products of small matrices
+and norms sum left to right, the normal equations' sums over the
+points pairwise in a fixed order (``core/rounding.py``)."""
 
 import numpy as np
 import torch
 
 from tadataka_torch.core.pose import Pose
 from tadataka_torch.core.projection import pi
-from tadataka_torch.core.so3 import exp_so3
-from tadataka_torch.core.solvers import solve, solve_nullspace
-from tadataka_torch.device import resolve_device
+from tadataka_torch.core.rounding import (
+    fixed_order_sum, matmul_small, norm, sqrt, sum_small)
+from tadataka_torch.core.so3 import exp_so3, exp_so3_small
+from tadataka_torch.core.solvers import on_host, solve_nullspace
+from tadataka_torch.device import resolve_device, upload
 from tadataka_torch.features.ransac import (
     _sample_valid_indices, default_generator, take_rows, uniform_draws)
 from tadataka_torch.utils.exceptions import NotEnoughInliersException
-from tadataka_torch.utils.timing import stage
+from tadataka_torch.utils.timing import probe, stage
 
 DEFAULT_TRIALS = 128
 MIN_CORRESPONDENCES = 6
@@ -29,14 +38,14 @@ def calc_reprojection_threshold(keypoints, k=3.0, mask=None):
     if mask is None:
         w = torch.ones(keypoints.shape[0], dtype=keypoints.dtype,
                        device=keypoints.device)
-        n = torch.tensor(float(keypoints.shape[0]), dtype=keypoints.dtype,
-                         device=keypoints.device)
+        n = torch.full((), float(keypoints.shape[0]), dtype=keypoints.dtype,
+                       device=keypoints.device)
     else:
         w = mask.to(keypoints.dtype)
         n = torch.clamp(torch.sum(w), min=1.0)
-    center = torch.sum(keypoints * w[:, None], dim=0, keepdim=True) / n
-    sq = torch.sum((keypoints - center) ** 2, dim=1) * w
-    rms = torch.sqrt(torch.sum(sq) / n)
+    center = fixed_order_sum((keypoints * w[:, None]).T)[None] / n
+    sq = sum_small((keypoints - center) ** 2) * w
+    rms = sqrt(fixed_order_sum(sq[None])[0] / n)
     return k * rms / n
 
 
@@ -49,32 +58,40 @@ def _dlt_pose(points, keypoints):
     A = torch.cat([torch.cat([X, zeros, -x * X], dim=-1),
                    torch.cat([zeros, X, -y * X], dim=-1)], dim=-2)
     P = solve_nullspace(A).reshape(A.shape[:-2] + (3, 4))
-    U, s, Vt = torch.linalg.svd(P[..., :3])
-    d = torch.sign(torch.linalg.det(U @ Vt))
-    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
-    R = (U * D[..., None, :]) @ Vt
-    scale = torch.mean(s, dim=-1) * d
+    R, scale = on_host(_dlt_rotation, P[..., :3])
     t = P[..., 3] / (scale + 1e-12)[..., None]
     # the global sign that puts the points in front of the camera
-    depths = torch.sum(points * R[..., None, 2, :], dim=-1) + t[..., None, 2]
+    depths = sum_small(points * R[..., None, 2, :]) + t[..., None, 2]
     flip = torch.sum(torch.sign(depths), dim=-1) < 0
     return R, torch.where(flip[..., None], -t, t)
 
 
+def _dlt_rotation(M):
+    """The rotation U diag(1, 1, d) V^T nearest the DLT's M = U s V^T
+    (d = sign det(U V^T)) and the scale mean(s) d, on the host."""
+    U, s, Vt = torch.linalg.svd(M)
+    d = torch.sign(torch.linalg.det(U @ Vt))
+    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
+    return (U * D[..., None, :]) @ Vt, torch.mean(s, dim=-1) * d
+
+
 def _transform(R, t, points):
-    return points @ R.transpose(-1, -2) + t[..., None, :]
+    return matmul_small(points, R.transpose(-1, -2)) + t[..., None, :]
 
 
 def _reprojection_errors(R, t, points, keypoints):
     P = _transform(R, t, points)
-    err = torch.linalg.vector_norm(pi(P) - keypoints, dim=-1)
+    err = norm(pi(P) - keypoints)
     return torch.where(P[..., 2] <= 0, float("inf"), err)
 
 
 def _residuals(p, R, t, points, keypoints):
-    """Reprojection residuals (2n,) of the pose (exp(p[:3]) R, t + p[3:])."""
-    Rk = exp_so3(p[:3]) @ R
-    P = points @ Rk.transpose(-1, -2) + (t + p[3:])
+    """Reprojection residuals (2n,) of the pose (exp(p[:3]) R, t + p[3:])
+    for an increment p near 0: its Jacobian is taken at p = 0, where
+    ``exp_so3`` takes its small-angle branch, so that branch alone is
+    differentiated (the same values and derivatives)."""
+    Rk = matmul_small(exp_so3_small(p[:3]), R)
+    P = matmul_small(points, Rk.transpose(-1, -2)) + (t + p[3:])
     return (pi(P) - keypoints).reshape(-1)
 
 
@@ -99,13 +116,23 @@ def _refine_gauss_newton(R, t, points, keypoints, weights, n_iter):
     for _ in range(n_iter):
         J = _jacobians(zero, R, t, points, keypoints)
         r = (pi(_transform(R, t, points)) - keypoints).reshape(len(R), -1)
-        Jw = J * w[..., None]
-        JtJ = Jw.transpose(-1, -2) @ J + eye
-        delta = solve(
-            JtJ, -(Jw.transpose(-1, -2) @ r[..., None]))[..., 0]
-        R = exp_so3(delta[:, :3]) @ R
+        Jw = (J * w[..., None]).transpose(-1, -2)           # (B, 6, 2n)
+        # [J^T W J | J^T W r] (B, 6, 7) in one pairwise sum over the rows
+        normal = fixed_order_sum(Jw[:, :, None, :] * torch.cat(
+            [J.transpose(-1, -2), r[:, None, :]], 1)[:, None, :, :])
+        delta, step = on_host(_step, normal[..., :6] + eye, normal[..., 6])
+        R = matmul_small(step, R)
         t = t + delta[:, 3:]
+        probe("Gauss-Newton", delta=delta, R=R, t=t)
     return R.reshape(batch + (3, 3)), t.reshape(batch + (3,))
+
+
+def _step(JtJ, Jtr):
+    """The increment delta = -(J^T W J)^-1 J^T W r and its rotation
+    exp_so3(delta[:3]): on the host, where the solve's result is (the
+    same bits as on the card, ``core/so3.py``)."""
+    delta = torch.linalg.solve_ex(JtJ, -Jtr)[0]
+    return delta, exp_so3(delta[:, :3])
 
 
 def solve_pnp_ransac(points, keypoints, mask, rng,
@@ -137,6 +164,8 @@ def solve_pnp_ransac(points, keypoints, mask, rng,
     counts = torch.sum(mask & (err < reprojection_threshold), dim=-1)
     best = torch.argmax(counts)
     R, t = Rs[best], ts[best]
+    probe(f"RANSAC {site}", threshold=reprojection_threshold, Rs=Rs, ts=ts,
+          trial_inliers=counts, best=best)
 
     err = _reprojection_errors(R, t, points, keypoints)
     inliers = mask & (err < reprojection_threshold)
@@ -176,9 +205,9 @@ def solve_pnp_packed(points, keypoints, mask_np, rng=None,
     if int(np.sum(mask_np)) < MIN_CORRESPONDENCES:
         raise NotEnoughInliersException("No sufficient correspondences")
     device = resolve_device(device)
-    points = torch.as_tensor(points, dtype=torch.float32).to(device)
-    keypoints = torch.as_tensor(keypoints, dtype=torch.float32).to(device)
-    mask = torch.as_tensor(np.asarray(mask_np, bool)).to(device)
+    points = upload(points, device, torch.float32)
+    keypoints = upload(keypoints, device, torch.float32)
+    mask = upload(np.asarray(mask_np, bool), device)
     if rng is None:
         rng = default_generator(device)
     pose, inliers = solve_pnp_ransac(

@@ -1,4 +1,5 @@
-"""Wall time of named stages, for measurement scripts.
+"""Wall time of named stages, and the values they produce, for
+measurement scripts.
 
 Code marks a stage with ``with stage(name, device):``.  That costs one
 check while no ``record()`` block is open; inside it, each stage is
@@ -8,14 +9,26 @@ are added to the block's dict under ``name``::
     with record() as ms:
         vo.estimate(frame)
     ms   # {"extract": ..., "match": ..., ...}
+
+Code marks a stage's outputs with ``probe(stage, name=value, ...)``.
+That costs one check while no ``capture()`` block is open; inside it,
+each value is copied to the host and appended to the block's list as
+``(stage, name, numpy array)``, in the order the code produced them, so
+that two runs (on the CPU and on the card) can be compared entry by
+entry::
+
+    with capture() as values:
+        vo.estimate(frame)
 """
 
 import time
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 
-_ms = None   # the open record() block's dict
+_ms = None       # the open record() block's dict
+_values = None   # the open capture() block's list
 
 
 @contextmanager
@@ -27,6 +40,28 @@ def record():
         yield _ms
     finally:
         _ms = None
+
+
+@contextmanager
+def capture():
+    """A list of (stage, name, value) of the values probed inside the
+    block."""
+    global _values
+    _values = []
+    try:
+        yield _values
+    finally:
+        _values = None
+
+
+def probe(stage, **values):
+    """Inside a ``capture()`` block, append each value's host copy."""
+    if _values is None:
+        return
+    for name, value in values.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        _values.append((stage, name, np.asarray(value)))
 
 
 def _sync(device):

@@ -36,6 +36,13 @@ WEIGHT_KINDS = ("none", "map", "depth-var", "tukey", "student-t", "huber")
 METHODS = ("ic", "fc")
 
 
+def calc_jacobian(focal_length, gx, gy, P):
+    """The image-gradient pose Jacobian rows (N, 6) for points P (N, 3)
+    in frame 1 and the gradients gx, gy (N,) of I1 sampled there."""
+    return torch.stack(calc_jacobian_cols(focal_length, gx, gy, P[:, 0],
+                                          P[:, 1], P[:, 2]), dim=-1)
+
+
 def calc_jacobian_cols(focal_length, gx, gy, x, y, z):
     """The six columns of the image-gradient pose Jacobian, (N,) each."""
     fx, fy = focal_length[0], focal_length[1]

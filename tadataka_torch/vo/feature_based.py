@@ -41,7 +41,7 @@ from tadataka_torch.core.so3 import exp_so3, log_so3
 from tadataka_torch.core.triangulation import (
     compute_depth_mask, pairwise_triangulation, two_view_triangulation)
 from tadataka_torch.dataset.image_io import rgb2gray
-from tadataka_torch.device import resolve_device
+from tadataka_torch.device import resolve_device, upload
 from tadataka_torch.features.brief import extract_features
 from tadataka_torch.features.matching import (
     Matcher, match_descriptors_guided)
@@ -51,7 +51,7 @@ from tadataka_torch.pose_estimation.pnp import (
     solve_pnp_packed, solve_pnp_ransac)
 from tadataka_torch.utils.exceptions import (
     NotEnoughInliersException, print_error)
-from tadataka_torch.utils.timing import stage
+from tadataka_torch.utils.timing import probe, stage
 
 
 def _pose_from_flat(flat):
@@ -150,12 +150,7 @@ class FeatureBasedVO:
     def _upload(self, array, dtype=None):
         """A host array on the device, through pinned memory without
         blocking on the card."""
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        if dtype is not None:
-            t = t.to(dtype)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device, copy=True)
+        return upload(array, self.device, dtype)
 
     def _new_point_ids(self, n):
         ids = list(range(self._next_point_id, self._next_point_id + n))
@@ -332,6 +327,7 @@ class FeatureBasedVO:
         flat = torch.cat([points.reshape(-1),
                           compute_depth_mask(depths).float()]).cpu().numpy()
         n = len(keypoints0)
+        probe("triangulate", points=points, depths=depths)
         return flat[:3 * n].reshape(n, 3), flat[3 * n:].astype(bool)
 
     def _refine_two_view(self, kp0, kp1, pose1, points):
@@ -355,6 +351,7 @@ class FeatureBasedVO:
         R0, R1 = flat[:18].reshape(2, 3, 3)
         t0, t1 = flat[18:24].reshape(2, 3)
         new_points = flat[24:].reshape(n, 3)
+        probe("two-view BA", params=new_params, points=new_points)
         # re-gauge: the world is camera 0's frame, the baseline unit
         R_rel = R1 @ R0.T
         t_rel = t1 - R_rel @ t0
@@ -497,6 +494,7 @@ class FeatureBasedVO:
             flat = torch.cat([points_dev.reshape(-1),
                               depths_dev.reshape(-1)]).cpu().numpy()
             points_all = flat[:3 * n].reshape(n, 3)
+            probe("triangulate", points=points_dev, depths=depths_dev)
             mask_all = np.all(flat[3 * n:].reshape(2, n) > 0.0, axis=0)
             off = 0
             for v, fresh, m in segs:
@@ -535,6 +533,8 @@ class FeatureBasedVO:
         new_poses, new_points = try_run_ba(
             np.asarray(vi), np.asarray(pi_), poses, points,
             np.asarray(keypoints, np.float32), device=self.device)
+        probe("BA", points=new_points, R=np.stack([host(p.R) for p in new_poses]),
+              t=np.stack([host(p.t) for p in new_poses]))
         for pid, pt in zip(point_ids, np.asarray(new_points)):
             self.point_dict[pid] = pt
         for v, pose in zip(viewpoints, new_poses):

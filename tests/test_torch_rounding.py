@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from tadataka_torch.core.rounding import (
-    as_divisor, atan, matmul_small, sqrt, tan)
+    as_divisor, atan, atan2, cos, matmul_small, mean, norm, sin, sincos,
+    sqrt, sqrt_positive, sum_small, tan)
 from tadataka_torch.vo.dvo import _triangle_weights, fixed_order_sum
 from tadataka_torch.vo.dvo import resize_image, resize_taps
 from tadataka_torch.vo.semi_dense.propagation import scatter_add
@@ -91,6 +92,98 @@ def test_tan_and_atan_off_the_fov_range(gen, fn, ref):
                                                            -np.pi / 2]))
     else:
         assert np.isnan(out[:2]).all()
+
+
+def trig_arguments(gen, n=100_000):
+    """Angles of |x| up to 1e4 over 40 orders of magnitude, rotation
+    angles (|x| < 4), and the floats at and next to each quadrant change
+    (x near k pi/4 for k up to 64), with their negatives and +-0."""
+    wide = gen.uniform(-1, 1, n) * 10.0 ** gen.uniform(-30, 4, n)
+    small = gen.uniform(-4, 4, n)
+    edges = np.float32(np.arange(1, 65) * np.pi / 4)
+    near = np.concatenate([edges, np.nextafter(edges, np.float32(0)),
+                           np.nextafter(edges, np.float32(np.inf))])
+    x = np.concatenate([wide, small, near, -near, [0.0]]).astype(np.float32)
+    return np.concatenate([x, np.float32([-0.0])])
+
+
+@pytest.mark.parametrize("fn,ref", [(sin, np.sin), (cos, np.cos)])
+def test_sin_and_cos(gen, fn, ref):
+    """Within one ulp of numpy's float64 function rounded to float32 on
+    every argument (0 ulps on 99.99% of them); sin odd with -0 kept, cos
+    even; sincos gives both at once with the same bits."""
+    x = trig_arguments(gen)
+    got = fn(torch.from_numpy(x)).numpy()
+    want = ref(x.astype(np.float64)).astype(np.float32)
+    assert got.dtype == np.float32
+    d = ulps_apart(got, want)
+    assert d.max() <= 1 and (d > 0).mean() < 1e-4
+    flipped = fn(torch.from_numpy(-x)).numpy()
+    np.testing.assert_array_equal(flipped, -got if fn is sin else got)
+    assert sin(torch.tensor([-0.0])).numpy().view(np.int32)[0] == \
+        np.float32(-0.0).view(np.int32)
+    both = sincos(torch.from_numpy(x))
+    assert torch.equal(both[0 if fn is sin else 1], fn(torch.from_numpy(x)))
+
+
+def test_sin_and_cos_derivatives(gen):
+    """Their forward-mode derivatives under ``vmap(jacfwd)`` within one
+    float32 ulp of cos and -sin (float64, rounded); and of sqrt_positive
+    within one ulp of 1 / (2 sqrt x), whose value is ``sqrt``'s."""
+    x = torch.from_numpy(trig_arguments(gen)[:40_000])
+    xd = x.numpy().astype(np.float64)
+    for fn, want in ((sin, np.cos(xd)), (cos, -np.sin(xd))):
+        got = torch.func.vmap(torch.func.jacfwd(fn))(x).numpy()
+        assert ulps_apart(np.abs(got),
+                          np.abs(want.astype(np.float32))).max() <= 1
+    pos = torch.from_numpy((gen.random(20_000) * 100 + 1e-3)
+                           .astype(np.float32))
+    assert torch.equal(sqrt_positive(pos), sqrt(pos))
+    got = torch.func.vmap(torch.func.jacfwd(sqrt_positive))(pos).numpy()
+    want = (0.5 / np.sqrt(pos.numpy().astype(np.float64))).astype(np.float32)
+    assert ulps_apart(got, want).max() <= 1
+
+
+def test_atan2(gen):
+    """Within one ulp of numpy's float64 arctan2 rounded to float32 in all
+    four quadrants, on the axes and at |y| = |x|; IEEE's signed zeros."""
+    n = 100_000
+    y = (gen.normal(size=n) * 10.0 ** gen.uniform(-6, 6, n))
+    x = (gen.normal(size=n) * 10.0 ** gen.uniform(-6, 6, n))
+    y[:1000] = x[:1000] * gen.choice([-1, 1], 1000)
+    y[1000:1100] = 0.0
+    x[1100:1200] = 0.0
+    y, x = y.astype(np.float32), x.astype(np.float32)
+    got = atan2(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    want = np.arctan2(y.astype(np.float64), x.astype(np.float64)).astype(
+        np.float32)
+    assert ulps_apart(np.abs(got), np.abs(want)).max() <= 1
+    assert (np.sign(got) == np.sign(want)).all()
+    zeros = torch.tensor([0.0, -0.0, 0.0, -0.0])
+    xs = torch.tensor([1.0, 1.0, -1.0, -1.0])
+    np.testing.assert_array_equal(
+        atan2(zeros, xs).numpy(),
+        np.arctan2(zeros.numpy(), xs.numpy()).astype(np.float32))
+
+
+def test_small_sums_norms_and_means(gen):
+    """sum_small and mean add left to right (mean divides truly); norm is
+    sqrt of sum_small of the squares: numpy's statements, bit for bit."""
+    x = gen.normal(size=(50, 5)).astype(np.float32)
+    want = x[:, 0]
+    for i in range(1, 5):
+        want = want + x[:, i]
+    np.testing.assert_array_equal(sum_small(torch.from_numpy(x)).numpy(),
+                                  want)
+    np.testing.assert_array_equal(mean(torch.from_numpy(x.T), 0).numpy(),
+                                  want / np.float32(5))
+    sq = x * x
+    acc = sq[:, 0]
+    for i in range(1, 5):
+        acc = acc + sq[:, i]
+    np.testing.assert_array_equal(norm(torch.from_numpy(x)).numpy(),
+                                  np.sqrt(acc.astype(np.float64))
+                                  .astype(np.float32))
 
 
 def test_division_by_as_divisor_is_the_true_quotient():
@@ -172,7 +265,9 @@ def test_resize_image_matches_the_dense_products(gen):
 def test_helpers_give_the_same_bits_on_the_card(gen):
     """sqrt, as_divisor, matmul_small, fixed_order_sum, scatter_add,
     resize_image, tan and atan (on 10^6 inputs: the FOV range and |x|
-    from 1e-30 to 1e4), and a FOV camera's normalize and unnormalize:
+    from 1e-30 to 1e4), a FOV camera's normalize and unnormalize, sin
+    and cos and their derivatives (angles over 40 orders of magnitude
+    and the floats around each quadrant change up to 16 pi) and atan2:
     the card's result equals the CPU's bit for bit."""
     need_card()
     from tadataka_torch.camera import FOV, CameraModel, CameraParameters
@@ -183,6 +278,7 @@ def test_helpers_give_the_same_bits_on_the_card(gen):
          ).astype(np.float32)]))
     pixels = torch.from_numpy((gen.random((20_000, 2)) * [640.0, 480.0])
                               .astype(np.float32))
+    angles = torch.from_numpy(trig_arguments(gen))
 
     def fov_camera(device):
         return CameraModel.create(CameraParameters.create(
@@ -209,6 +305,10 @@ def test_helpers_give_the_same_bits_on_the_card(gen):
         (tan, (wide,)),
         (atan, (wide,)),
         (fov_round_trip, (pixels,)),
+        (lambda v: torch.stack(sincos(v)), (angles,)),
+        (atan2, (wide[:400_000], wide[400_000:800_000])),
+        (lambda v: torch.func.vmap(torch.func.jacfwd(sin))(v), (angles,)),
+        (lambda v: torch.func.vmap(torch.func.jacfwd(cos))(v), (angles,)),
     ]
     for fn, args in cases:
         cpu = fn(*args)
