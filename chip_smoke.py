@@ -34,7 +34,14 @@ bit (the first that parts is named).  Last, ``VitaminEVO``
 (``vitamin_e``) at 480x640: its curvature, extrema, ORB descriptors,
 tracks, poses and map bit for bit on the CPU and the card, its
 trajectory and map gated on the JAX package's readings, its stage
-times, ms/frame and host syncs a frame printed.  Every
+times, ms/frame and host syncs a frame printed.  Then ``parallel``: the
+last `tent` update of phase 5 column-sharded over 4 shards of the card
+(``make_sharded_update_sweep``: an ssd_search launch a shard, the maps
+bit for bit the one-device update's and the CPU's) and row-sharded
+(``sharded_update_depth``), the landmark-sharded BA at 10,240 landmarks
+(CPU and card bit for bit), and the BA in two processes that share the
+card through a gloo group (the script runs itself with ``--ba-worker``
+for each).  Every
 phase prints lines; any failure ends the script with a traceback and a
 non-zero exit.  The last lines are the card's name and power limit, a
 JSON line of per-kernel results, and a JSON line ``{"ok": true,
@@ -106,6 +113,10 @@ N_EUROC_FRAMES = 5
 EUROC_MAX_DISPARITY = 64
 # the pipelined phase's CPU-against-card check
 PIPELINED_CHECK = dict(shape=(120, 160), focal=120.0, frames=5)
+# the parallel phase: shards on the one card, and the BA at the JAX
+# package's realistic scale (tests/parallel/test_parallel.py:185-219)
+PARALLEL_SHARDS = 4
+PARALLEL_BA = dict(n_viewpoints=8, n_points=10240, obs_per_point=3)
 
 
 def log(phase, message):
@@ -1425,12 +1436,16 @@ def phase_pipelined(smi):
     return launches
 
 
+UPDATE_INPUTS = {}   # phase -> the inputs of its last frame's update
+
+
 def stage_times(phase, vo, prev, prev_image, refs, frame, device, plan):
     """Median ms of each stage of one steady-state frame, calling the
     port's stage functions on that frame's inputs; the update runs the
     app's plan of that frame (None: the scattered estimator).  Returns the
     inputs of every ssd_search call of that update, recorded in one
-    untimed call before the timed ones."""
+    untimed call before the timed ones; keeps the update's inputs in
+    UPDATE_INPUTS[phase]."""
     from tadataka_torch.apps.semi_dense_vo import (
         prepare_image, track, propagate_step, update, to_gray_f32)
     from tadataka_torch.core.rounding import matmul_small
@@ -1449,6 +1464,10 @@ def stage_times(phase, vo, prev, prev_image, refs, frame, device, plan):
     def update_frame():
         return update(cam, vo.params, image, T_wk, refs, age1, d1, v1, plan,
                       False, vo.fuse_prior, vo.n_ref_samples)
+
+    UPDATE_INPUTS[phase] = dict(cam=cam, params=vo.params, image=image,
+                                T_wk=T_wk, refs=refs, age=age1, depth=d1,
+                                variance=v1, plan=plan)
 
     with SearchCapture() as capture:
         update_frame()
@@ -2420,7 +2439,304 @@ def phase_vitamin_e(smi):
     assert len(vo.points) > 1000
 
 
+# ------------------------------------------------------- the parallel phase
+
+def event_turns(fns, rounds=5):
+    """Median ms of each callable, timed by CUDA events in turns (one
+    call of each a round, after one warm-up round)."""
+    times = {name: [] for name in fns}
+    for r in range(rounds + 1):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if r:
+                times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def recorded_update(device):
+    """The slice's last update as the app makes it (``update`` in
+    apps/semi_dense_vo.py): (keyframe, stacked refframes, clamped ages,
+    prior depth, prior variance, params) on ``device``, and its plan."""
+    from tadataka_torch.parallel.mesh import to_device
+    from tadataka_torch.vo.semi_dense import make_frame, stack_frames
+    rec = UPDATE_INPUTS["slice"]
+    keyframe = make_frame(rec["cam"], rec["image"], rec["T_wk"])
+    refs = stack_frames(rec["refs"])
+    age = torch.clamp(rec["age"], 0, refs.image.shape[0])
+    return to_device((keyframe, refs, age, rec["depth"], rec["variance"],
+                      rec["params"]), device), rec["plan"]
+
+
+def all_equal(a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def parallel_sweep(smi):
+    """Phase 5's last update (a steady `tent` frame, 8 refframes)
+    column-sharded over PARALLEL_SHARDS shards of the card: one
+    ssd_search launch a shard, each shard's search checked against the
+    plain version; the maps torch.equal to the one-device update +
+    regularize on the card and to the same sharded call on the CPU; then
+    the row-sharded scattered update torch.equal to the one-device one
+    and to the CPU's.
+    Returns the main path's ssd_search launches."""
+    from tadataka_torch.parallel import (
+        make_mesh, make_sharded_update_sweep, sharded_update_depth)
+    from tadataka_torch.parallel.mesh import unshard
+    from tadataka_torch.vo.semi_dense import regularize, update_depth
+    from tadataka_torch.vo.semi_dense.fast import update_depth_fast
+    from tadataka_torch.vo.semi_dense.sweep import ring_config, ssd_search
+    n = PARALLEL_SHARDS
+    card, plan = recorded_update("cuda")
+    host, _ = recorded_update("cpu")
+    H, W = card[3].shape
+    assert plan.path == "tent", plan
+    mesh = make_mesh(["cuda:0"] * n)
+    sweep = make_sharded_update_sweep(mesh, (H, W), plan)
+
+    ssd_search.launches = 0
+    out = sweep(*card)
+    torch.cuda.synchronize()
+    launches = ssd_search.launches
+    assert launches == n, (launches, n)
+    out = [unshard(mesh, b, 1) for b in out]
+
+    def single():
+        d, v, f = update_depth_fast(*card, plan=plan)
+        return regularize(d, v, f), v, f
+
+    assert all_equal(out, single()), "sharded sweep != one-device update"
+    cpu_mesh = make_mesh(["cpu"] * n)
+    t0 = time.perf_counter()
+    cpu = [unshard(cpu_mesh, b, 1) for b in make_sharded_update_sweep(
+        cpu_mesh, (H, W), plan)(*host)]
+    cpu_s = time.perf_counter() - t0
+    assert all_equal(out, cpu), "sharded sweep: card != CPU"
+
+    with SearchCapture() as capture:
+        sweep(*card)
+    assert len(capture.calls) == n, len(capture.calls)
+    for i, args in enumerate(capture.calls):
+        assert tuple(args[0].shape[1:]) == (H, W // n), args[0].shape
+        assert all(x.is_contiguous() for x in args)
+        check_designs(f"shard {i}'s search", args)
+    S = capture.calls[0][0].shape[0]
+    ring = ring_config(S, H, W // n)
+    timing = time_search("parallel", f"shard 0's search of {n}",
+                         capture.calls[0])
+    ms = event_turns({"sharded": lambda: sweep(*card), "single": single})
+    success = (out[2] == 0).float().mean().item()
+    log("parallel", f"column-sharded sweep, {n} shards of {H}x{W // n} on "
+        f"one card, plan {plan.n_planes}: {launches} ssd_search launches "
+        f"(S={S}, ring plan {ring['ring']}: grid {ring['grid']}), every "
+        "shard's search bit-equal to plain in both designs; depth, "
+        "variance and flags torch.equal to update_depth_fast + regularize "
+        f"on the card and to the sharded call on the CPU ({cpu_s:.1f} s); "
+        f"SUCCESS share {success:.3f}; ms per update (CUDA events, in "
+        f"turns, medians of 5): sharded {ms['sharded']:.2f}, one device "
+        f"{ms['single']:.2f} ({smi})")
+
+    rows = [unshard(mesh, b) for b in sharded_update_depth(mesh, *card)]
+    assert all_equal(rows, update_depth(*card)), "row-sharded != one-device"
+    t0 = time.perf_counter()
+    cpu = [unshard(cpu_mesh, b) for b in sharded_update_depth(cpu_mesh,
+                                                              *host)]
+    cpu_s = time.perf_counter() - t0
+    assert all_equal(rows, cpu), "row-sharded update: card != CPU"
+    log("parallel", f"row-sharded scattered update, {n} shards of "
+        f"{H // n}x{W}: torch.equal to update_depth on the card and to the "
+        f"sharded call on the CPU ({cpu_s:.1f} s)")
+    return launches, timing
+
+
+def ba_scene(seed, n_viewpoints, n_points, obs_per_point=None):
+    """The JAX package's BA test scenes (tests/parallel/test_parallel.py):
+    every viewpoint sees every point (``obs_per_point`` None, the
+    64-point scene), or ``obs_per_point`` observations of each point from
+    random viewpoints (the realistic scale).  Returns (noisy poses, noisy
+    points, viewpoint indices, point indices, x_true), made on the host."""
+    from tadataka_torch.ba.residuals import transform_project
+    rng = np.random.default_rng(seed)
+    spread, depth, turn = ((1, 5.0, 0.1) if obs_per_point is None
+                           else (2, 8.0, 0.05))
+    points = rng.uniform(-spread, spread, (n_points, 3)).astype(np.float32)
+    points[:, 2] += depth
+    rotvecs = rng.uniform(-turn, turn, (n_viewpoints, 3)).astype(np.float32)
+    ts = rng.uniform(-0.5, 0.5, (n_viewpoints, 3)).astype(np.float32)
+    poses = np.hstack([rotvecs, ts])
+    if obs_per_point is None:
+        vi, pi_ = (g.T.ravel() for g in np.meshgrid(np.arange(n_viewpoints),
+                                                     np.arange(n_points)))
+    else:
+        pi_ = np.repeat(np.arange(n_points), obs_per_point)
+        vi = rng.integers(0, n_viewpoints, pi_.shape[0])
+    x_true = transform_project(torch.from_numpy(poses)[vi],
+                               torch.from_numpy(points)[pi_]).numpy()
+    poses_noisy = (poses + rng.normal(0, 0.01, poses.shape)).astype(
+        np.float32)
+    points_noisy = (points + rng.normal(0, 0.05, points.shape)).astype(
+        np.float32)
+    return poses_noisy, points_noisy, vi, pi_, x_true
+
+
+def reprojection_mse(poses, points, vi, pi_, x_true):
+    from tadataka_torch.ba.residuals import projection_residuals
+    r = projection_residuals(poses.cpu(), points.cpu(), torch.as_tensor(vi),
+                             torch.as_tensor(pi_), torch.from_numpy(x_true))
+    return float(torch.mean(torch.sum(r * r, dim=-1)))
+
+
+def parallel_ba(smi):
+    """Landmark-sharded BA at the JAX package's realistic scale
+    (PARALLEL_BA: 10,240 landmarks, 8 viewpoints, 3 observations each)
+    over PARALLEL_SHARDS shards of the card, max_iter=15: the JAX test's
+    gate (mean squared reprojection error < 1e-8), two card runs and a
+    CPU run bit-equal; ms per LM iteration, host syncs per iteration and
+    the solve's peak device memory (above what earlier phases hold)."""
+    import warnings
+    import tadataka_torch.parallel.distributed_ba as dba
+    from tadataka_torch.parallel import distributed_lm_solve, make_mesh
+    scene = ba_scene(3939, **PARALLEL_BA)
+    n = PARALLEL_SHARDS
+    mesh = make_mesh(["cuda:0"] * n)
+    assemble = dba._local_assemble
+    calls = [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return assemble(*args)
+
+    dba._local_assemble = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()    # earlier phases' tensors
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            first = distributed_lm_solve(mesh, *scene, max_iter=15)
+            torch.cuda.set_sync_debug_mode("default")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        iterations = calls[0] // n
+    finally:
+        dba._local_assemble = assemble
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = distributed_lm_solve(mesh, *scene, max_iter=15)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = distributed_lm_solve(make_mesh(["cpu"] * n), *scene, max_iter=15)
+    mse = reprojection_mse(first[0], first[1], *scene[2:])
+    log("parallel", f"landmark-sharded BA, {PARALLEL_BA}, {n} shards on the "
+        f"card: {iterations} LM iterations, {ms / iterations:.2f} ms an "
+        f"iteration ({ms:.1f} ms in all), host syncs an iteration "
+        f"{syncs / iterations:.1f} ({syncs} in all), peak device memory "
+        f"{peak:.1f} MiB above what was held before; reprojection MSE {mse:.3e} (gate < 1e-8), error "
+        f"{float(first[2]):.3e}; two card runs "
+        f"{'bit-equal' if all_equal(first, second) else 'DIFFER'}, CPU and "
+        f"card {'bit-equal' if all_equal(first, cpu) else 'DIFFER'} ({smi})")
+    assert mse < 1e-8, mse
+    assert bool(torch.isfinite(first[1]).all())
+    assert all_equal(first, second) and all_equal(first, cpu)
+
+
+def ba_worker(rank, port, outdir):
+    """One of the two processes of parallel_two_processes: joins the gloo
+    group, runs the BA over PARALLEL_SHARDS shards of the card (the mesh
+    spans both processes) and saves its result."""
+    sys.path.insert(0, str(ROOT))
+    from tadataka_torch.parallel import distributed_lm_solve, make_mesh
+    from tadataka_torch.parallel.multihost import initialize_distributed
+    rank = int(rank)
+    assert initialize_distributed(f"127.0.0.1:{port}", 2, rank) == (rank, 2)
+    assert torch.distributed.get_backend() == "gloo"
+    mesh = make_mesh(["cuda:0"] * PARALLEL_SHARDS)
+    assert mesh.size == 2 * PARALLEL_SHARDS and mesh.spans_processes
+    scene = np.load(Path(outdir) / "scene.npz")
+    poses, points, err = distributed_lm_solve(
+        mesh, *(scene[k] for k in ("poses", "points", "vi", "pi", "x")),
+        max_iter=30)
+    np.savez(Path(outdir) / f"out_{rank}.npz", poses=poses.cpu().numpy(),
+             points=points.cpu().numpy(), err=float(err))
+    torch.distributed.destroy_process_group()
+
+
+def parallel_two_processes(smi):
+    """The JAX two-process test's scene (seed 7, 4 viewpoints, 64 points)
+    over 2 x PARALLEL_SHARDS shards in two processes that share the card,
+    joined by initialize_distributed with gloo (NCCL refuses two ranks on
+    one GPU): both return the same poses and points, converged (error <
+    1e-6); compared with one process's run over the same 8 shards."""
+    import socket
+    from tadataka_torch.parallel import distributed_lm_solve, make_mesh
+    scene = ba_scene(7, 4, 64)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as outdir:
+        np.savez(Path(outdir) / "scene.npz", **dict(zip(
+            ("poses", "points", "vi", "pi", "x"), scene)))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ba-worker",
+             str(rank), str(port), outdir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, o in zip(procs, outs):
+            assert p.returncode == 0, o[-4000:]
+        seconds = time.perf_counter() - t0
+        results = [np.load(Path(outdir) / f"out_{r}.npz") for r in range(2)]
+        results = [{k: r[k] for k in r.files} for r in results]
+    for k in ("poses", "points", "err"):
+        assert np.array_equal(results[0][k], results[1][k]), k
+    err = float(results[0]["err"])
+    assert err < 1e-6, err
+    one = distributed_lm_solve(make_mesh(["cuda:0"] * 2 * PARALLEL_SHARDS),
+                               *scene, max_iter=30)
+    one = [one[0].cpu().numpy(), one[1].cpu().numpy()]
+    same = all(np.array_equal(a, results[0][k])
+               for a, k in zip(one, ("poses", "points")))
+    diff = max(float(np.max(np.abs(a - results[0][k])))
+               for a, k in zip(one, ("poses", "points")))
+    log("parallel", f"two processes on the one card (gloo), "
+        f"{2 * PARALLEL_SHARDS} shards, the 64-point scene: both processes "
+        f"equal, error {err:.3e} (< 1e-6), {seconds:.1f} s with start-up; "
+        "against one process's 8-shard run: "
+        + ("bit-equal" if same else f"largest difference {diff:.3g} (the "
+           "cross-process sum adds the processes' partial sums)")
+        + f" ({smi})")
+
+
+def phase_parallel(smi):
+    """The parallel paths at full width on the card: the column-sharded
+    sweep and the row-sharded update on phase 5's last frame, the
+    landmark-sharded BA at 10,240 landmarks, and the BA in two processes
+    sharing the card.  Returns (ssd_search launches, the shard search's
+    timing)."""
+    launches, timing = parallel_sweep(smi)
+    parallel_ba(smi)
+    parallel_two_processes(smi)
+    return launches, timing
+
+
 def main():
+    if sys.argv[1:2] == ["--ba-worker"]:
+        ba_worker(*sys.argv[2:5])
+        return
     smi = phase_environment()
     sys.path.insert(0, str(ROOT))
     t0 = time.perf_counter()
@@ -2450,11 +2766,13 @@ def main():
         phase_dvo(tum_root)
     phase_feature(smi)
     phase_vitamin_e(smi)
+    parallel_launches, _ = phase_parallel(smi)
+    launches += parallel_launches
     at48 = timings[("random", 48, 480, 640)]
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s; "
         "ms/plain_ms below: ssd_search (its ring design) at S=48, the SSD "
         "probes at S=32, the gather probes on their scripts' inputs, "
-        "480x640; launches: the slice, rect and pipelined phases "
+        "480x640; launches: the slice, rect, pipelined and parallel phases "
         "(ssd_search), the "
         "probe runs (the probes); bound_ms at the data sheet's 3.35 TB/s "
         "and 67 TFLOP/s, ssd_search's at what its inputs need")

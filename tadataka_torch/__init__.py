@@ -9,9 +9,10 @@ Every Pallas kernel on a ported path becomes a hand-written CUDA kernel
 on a CPU tensor each kernel's wrapper runs its plain PyTorch version.
 
 The port imports ``torch``, ``numpy`` and ``scipy`` (the TUM pose
-files' quaternions, bundle adjustment's rotation vectors) only; it never
-imports ``jax`` or ``tadataka_tpu``, and it reads and writes PNG with its
-own codec.  Float32 matrix products
+files' quaternions, bundle adjustment's rotation vectors) only, and
+``matplotlib`` inside ``viz``'s functions; it never imports ``jax`` or
+``tadataka_tpu``, and it reads and writes PNG with its own codec (or
+the C++ decoder of ``native/``, ``dataset/native_loader.py``).  Float32 matrix products
 stay in full float32 (TF32 off, PyTorch's default) and no convolution is
 used.
 """

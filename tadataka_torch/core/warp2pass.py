@@ -47,10 +47,19 @@ def gather_cols_bilinear(img, x):
     return (1.0 - ax) * v0 + ax * v1
 
 
-def homography_warp(img, H33, fill=-1.0, eps=1e-6):
+def _columns(cols, Wi, img):
+    """Output column coordinates: ``cols = (x0, w)`` gives x0 .. x0+w-1,
+    None the whole width."""
+    x0, w = (0, Wi) if cols is None else cols
+    return torch.arange(x0, x0 + w, dtype=img.dtype, device=img.device)
+
+
+def homography_warp(img, H33, fill=-1.0, eps=1e-6, cols=None):
     """Warp ``img`` (H, W) or (C, H, W) by pixel-space homographies
     ``H33`` (..., 3, 3): out[..., y', x'] = img(U, V) with
-    (U, V, 1) ~ H33 @ (x', y', 1).
+    (U, V, 1) ~ H33 @ (x', y', 1).  ``cols = (x0, w)`` computes only the
+    output columns x0 .. x0+w-1 (each lane's arithmetic as in the whole
+    warp), still sampling the whole image.
 
     Returns (warped (..., H, W), valid): ``valid`` marks lanes whose
     source is inside the image and in front of the projection plane
@@ -63,7 +72,7 @@ def homography_warp(img, H33, fill=-1.0, eps=1e-6):
     h10, h11, h12 = h[..., 1, 0, :, :], h[..., 1, 1, :, :], h[..., 1, 2, :, :]
     h20, h21, h22 = h[..., 2, 0, :, :], h[..., 2, 1, :, :], h[..., 2, 2, :, :]
 
-    xo = torch.arange(Wi, dtype=f32, device=img.device)[None, :]
+    xo = _columns(cols, Wi, img)[None, :]
     yo = torch.arange(Hi, dtype=f32, device=img.device)[:, None]
 
     # direct maps for validity and for pass B's row coordinate
@@ -87,13 +96,14 @@ def homography_warp(img, H33, fill=-1.0, eps=1e-6):
     return torch.where(valid, out, fill), valid
 
 
-def displacement_warp(img, dx, dy):
+def displacement_warp(img, dx, dy, cols=None):
     """out(x, y) ~ img(x + dx(x, y), y + dy(x, y)) for smooth, small
-    displacement fields: horizontal resample, then vertical.
+    displacement fields: horizontal resample, then vertical.  ``cols``:
+    as in :func:`homography_warp` (dx, dy are then (H, w)).
     Returns (values, valid)."""
     Hi, Wi = img.shape
     f32 = img.dtype
-    X = torch.arange(Wi, dtype=f32, device=img.device)[None, :] + dx
+    X = _columns(cols, Wi, img)[None, :] + dx
     Y = torch.arange(Hi, dtype=f32, device=img.device)[:, None] + dy
     out = gather_rows_bilinear(gather_cols_bilinear(img, X), Y)
     valid = (X >= 0.0) & (X <= Wi - 1.0) & (Y >= 0.0) & (Y <= Hi - 1.0)

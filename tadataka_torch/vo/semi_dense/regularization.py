@@ -8,12 +8,18 @@ from tadataka_torch.flags import Flag
 from tadataka_torch.vo.semi_dense.estimator import safe_invert
 
 
+def _box3_rows(x):
+    """3x3 box sums of x (..., H, w + 2) whose first and last columns
+    are a halo: the columns' taps from x, the rows zero-padded; (..., H,
+    w), as shifted adds (no convolution)."""
+    h = x[..., :-2] + x[..., 1:-1] + x[..., 2:]
+    p = F.pad(h, (0, 0, 1, 1))
+    return p[..., :-2, :] + p[..., 1:-1, :] + p[..., 2:, :]
+
+
 def _box3(x):
-    """SAME zero-padded 3x3 box sum as shifted adds (no convolution)."""
-    p = F.pad(x, (1, 1))
-    h = p[:, :-2] + p[:, 1:-1] + p[:, 2:]
-    p2 = F.pad(h, (0, 0, 1, 1))
-    return p2[:-2] + p2[1:-1] + p2[2:]
+    """SAME zero-padded 3x3 box sum."""
+    return _box3_rows(F.pad(x, (1, 1)))
 
 
 def regularize(depth_map, variance_map, flag_map):

@@ -62,13 +62,14 @@ def plane_homography(T_rk, q, key_focal, key_offset, ref_focal, ref_offset):
 
 
 def warp_plane_stack(ref_image, T_rk, qs, key_focal, key_offset,
-                     ref_focal, ref_offset):
+                     ref_focal, ref_offset, cols=None):
     """(S, H, W) stack of the ref image warped onto the key grid at each
     inverse-depth plane qs (S,); out-of-image / behind-camera lanes hold
-    -1.  All planes are warped in one batched two-pass gather."""
+    -1.  All planes are warped in one batched two-pass gather.  ``cols =
+    (x0, w)``: only the key grid's columns x0 .. x0+w-1, (S, H, w)."""
     H33 = plane_homography(T_rk, qs, key_focal, key_offset,
                            ref_focal, ref_offset)
-    stack, _ = homography_warp(ref_image, H33, fill=-1.0)
+    stack, _ = homography_warp(ref_image, H33, fill=-1.0, cols=cols)
     return stack
 
 
@@ -288,18 +289,21 @@ ssd_search.launches = 0   # kernel launches; the CPU path never counts
 # ------------------------------------------------------------- key patch
 
 def _key_patch_stack(key_image, key_focal, step_size_map, dir_x_map,
-                     dir_y_map):
+                     dir_y_map, cols=None):
     """(5, H, W) key-patch samples at offsets -2..2 along the per-pixel
-    epipolar direction, via two-pass displacement warps."""
+    epipolar direction, via two-pass displacement warps.  ``cols = (x0,
+    w)``: the maps are the (H, w) block of key columns x0 .. x0+w-1, and
+    the samples are taken from the whole key image."""
     half = N_KEY_SAMPLES // 2
     planes = []
     for k in range(-half, half + 1):
         if k == 0:
-            planes.append(key_image)
+            planes.append(key_image if cols is None
+                          else key_image[:, cols[0]:cols[0] + cols[1]])
             continue
         dx = k * step_size_map * dir_x_map * key_focal[0]
         dy = k * step_size_map * dir_y_map * key_focal[1]
-        warped, _ = displacement_warp(key_image, dx, dy)
+        warped, _ = displacement_warp(key_image, dx, dy, cols=cols)
         planes.append(warped)
     return torch.stack(planes)
 
@@ -403,13 +407,23 @@ def _per_ref_tuple(value, R_frames):
 
 def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
                        prior_variance, params, n_planes=DEFAULT_N_PLANES,
-                       redirect=None, fuse_prior=False):
+                       redirect=None, col_offset=None, fuse_prior=False):
     """Full-map inverse-depth update via plane sweep.
 
     keyframe + stacked refframe history (oldest first); each pixel's age
     selects refframe R - age, reassigned through ``redirect`` (a tuple of
     refframe indices, one per refframe).  ``n_planes`` is an int or a
     per-refframe tuple.  Returns (depth_map, variance_map, flag_map).
+
+    ``col_offset`` (an int) switches to the column-block mode of the
+    column-sharded update (``parallel/sharded_semi_dense.py``):
+    ``age_map`` and ``prior_*`` are the (H, w) block of the map's columns
+    col_offset .. col_offset+w-1, and the key and ref images stay whole.
+    The Sobel gradients are taken on the whole key image and then cut (a
+    Sobel of the block alone would pad its inner edges with zeros), and
+    the key patch and plane warps are computed at the block's pixels
+    only, sampling the whole images.  Each pixel's arithmetic is that of
+    the whole-map update, so the block equals its columns of it.
     """
     H, W = prior_depth.shape
     R_frames = refframes.image.shape[0]
@@ -426,10 +440,13 @@ def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
     e_key_all = {r: calc_key_epipole(T_wk, refframes.transform_wf[r])
                  for r in set(redirect)}
 
-    gx = sobel_x(keyframe.image)
-    gy = sobel_y(keyframe.image)
+    cols = None if col_offset is None else (int(col_offset), W)
+    col0 = 0 if cols is None else cols[0]
+    gx = sobel_x(keyframe.image)[:, col0:col0 + W]
+    gy = sobel_y(keyframe.image)[:, col0:col0 + W]
     Y, X = torch.meshgrid(torch.arange(H, dtype=f32, device=device),
-                          torch.arange(W, dtype=f32, device=device),
+                          torch.arange(col0, col0 + W, dtype=f32,
+                                       device=device),
                           indexing="ij")
     us_x, us_y = X.ravel(), Y.ravel()
 
@@ -496,7 +513,8 @@ def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
     # increasing q, opposite to the scattered path's sample order
     K_stack = _key_patch_stack(
         keyframe.image, keyframe.focal_length, key_step_sweep.reshape(H, W),
-        -geo.key_dir_x.reshape(H, W), -geo.key_dir_y.reshape(H, W))
+        -geo.key_dir_x.reshape(H, W), -geo.key_dir_y.reshape(H, W),
+        cols=cols)
     dK = torch.diff(K_stack, dim=0)
     key_grad_map = sqrt(dK[0] * dK[0] + dK[1] * dK[1] + dK[2] * dK[2]
                               + dK[3] * dK[3])
@@ -519,7 +537,8 @@ def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
         qs = torch.clamp(qs, min=EPSILON)
         V = warp_plane_stack(refframes.image[r], T_rk_all[r], qs,
                              keyframe.focal_length, keyframe.offset,
-                             refframes.focal_length[r], refframes.offset[r])
+                             refframes.focal_length[r], refframes.offset[r],
+                             cols=cols)
         if S_r < S_max:
             V = F.pad(V, (0, 0, 0, 0, 0, S_max - S_r), value=-1.0)
         V_sel = torch.where(ridx_map[None] == r, V, V_sel)
