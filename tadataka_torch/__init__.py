@@ -18,3 +18,5 @@ used.
 """
 
 __version__ = "0.1.0"
+
+from tadataka_torch import flags  # noqa: F401

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from tadataka_torch.apps.semi_dense_vo import (
-    SemiDenseVOState, propagate_step, track, update)
+    SemiDenseVOState, plan_record, propagate_step, track, update)
 from tadataka_torch.camera import CameraModel, CameraParameters
 from tadataka_torch.core.pose import Pose
 from tadataka_torch.core.rounding import matmul_small
@@ -131,7 +131,9 @@ class PipelinedSemiDenseVO:
     asks for the CPU; raises if either names CUDA and there is none.
     Both name one device: on a card each stage gets its own stream
     there (stages on two devices would need copies between them, which
-    this app does not make)."""
+    this app does not make).
+    ``metrics``: any object with ``log_frame(frame_index, **values)``;
+    every mapped frame logs the planner's decision, as in SemiDenseVO."""
 
     def __init__(self, camera_params: CameraParameters,
                  params: SemiDenseParams = None,
@@ -139,7 +141,7 @@ class PipelinedSemiDenseVO:
                  uncertainty_bias=1.0, depth_range=(60.0, 1000.0),
                  history_size=4, n_coarse_to_fine=5,
                  regularize_depth=True, devices=("cuda", "cuda"), seed=0,
-                 initial_pose_fn=None, fuse_prior=True):
+                 initial_pose_fn=None, fuse_prior=True, metrics=None):
         dev_track, dev_map = (resolve_device(d) for d in devices)
         if dev_track != dev_map:
             raise ValueError(f"devices={devices!r}: both stages on one "
@@ -158,6 +160,7 @@ class PipelinedSemiDenseVO:
         self.fuse_prior = fuse_prior
         self.initial_pose_fn = initial_pose_fn
         self.seed = seed
+        self.metrics = metrics
 
         self._cam_m = CameraParameters(*(x.to(dev_map)
                                          for x in camera_params))
@@ -266,6 +269,8 @@ class PipelinedSemiDenseVO:
                 self.fuse_prior)
             pose = Pose.from_matrix(T_wk_m)
         map_event = self._mapper.record()
+        if self.metrics is not None:
+            self.metrics.log_frame(self._frame_id, **plan_record(plan))
         # the completed map goes to the tracker, read two frames later
         self._track_map = self._tracker.receive(map_event, d2, v2)
         self._push_refframe(SemiDenseFrame(self._cam_m.focal_length,

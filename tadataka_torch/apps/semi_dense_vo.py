@@ -36,6 +36,17 @@ from tadataka_torch.vo.semi_dense.frame import SemiDenseFrame
 from tadataka_torch.vo.semi_dense.params import DEFAULT_N_REF_SAMPLES
 
 
+def plan_record(plan):
+    """The planner's decision of a frame as ``metrics.log_frame`` takes
+    it; ``plan`` None is the scattered estimator."""
+    return dict(
+        plan_path="scatter" if plan is None else plan.path,
+        plan_n_planes=0 if plan is None else sum(plan.n_planes),
+        plan_max_budget=0 if plan is None else max(
+            (max(b) if not isinstance(b, int) else b
+             for b in plan.warp_budget), default=0))
+
+
 class SemiDenseVOState(NamedTuple):
     pose_wc: Pose          # camera -> world of the latest frame (on device)
     depth_map: torch.Tensor
@@ -271,13 +282,7 @@ class SemiDenseVO:
             self._pending.append((self._frame_id, T10))
 
         if self.metrics is not None:
-            self.metrics.log_frame(
-                self._frame_id,
-                plan_path="scatter" if plan is None else plan.path,
-                plan_n_planes=0 if plan is None else sum(plan.n_planes),
-                plan_max_budget=0 if plan is None else max(
-                    (max(b) if not isinstance(b, int) else b
-                     for b in plan.warp_budget), default=0))
+            self.metrics.log_frame(self._frame_id, **plan_record(plan))
         self._push_refframe(
             SemiDenseFrame(cam.focal_length, cam.offset, image, T_wk),
             push_T_host)

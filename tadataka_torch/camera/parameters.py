@@ -16,6 +16,17 @@ class CameraParameters(NamedTuple):
                    torch.as_tensor(offset, dtype=dtype, device=device))
 
     @property
+    def matrix(self):
+        """The 3x3 intrinsic matrix [[fx, 0, cx], [0, fy, cy], [0, 0, 1]]."""
+        fx, fy = self.focal_length[0], self.focal_length[1]
+        cx, cy = self.offset[0], self.offset[1]
+        zero = torch.zeros_like(fx)
+        one = torch.ones_like(fx)
+        return torch.stack([torch.stack([fx, zero, cx]),
+                            torch.stack([zero, fy, cy]),
+                            torch.stack([zero, zero, one])])
+
+    @property
     def params(self):
         return self.focal_length.tolist() + self.offset.tolist()
 

@@ -11,21 +11,26 @@ built from index arithmetic on the device (no host sync).
 
 import torch
 
-from tadataka_torch.core.warp2pass import homography_warp
+from tadataka_torch.core.warp2pass import EPSILON, _warp  # noqa: F401
 
 
-def rot_warp(img, H33, fill=-1.0, eps=1e-6):
+def rot_warp(img, H33, fill=-1.0, eps=1e-6, out_rows=None):
     """Homography warp of ``img`` (H, W) or (C, H, W) by one ``H33``
     (3, 3): out(x', y') = img(U, V) with (U, V, 1) ~ H33 @ (x', y', 1).
+    ``out_rows = (y0, n)`` computes only the output rows y0 .. y0+n-1
+    (the row-sharded path's block), each lane as in the whole warp.
 
-    Returns (warped, valid (H, W)).  Valid lanes are in front of the
+    Returns (warped, valid (n, W)).  Valid lanes are in front of the
     projection plane, inside the image and off the rows where the
     two-pass decomposition is singular (|h11 - y' h21| < eps); invalid
     lanes hold ``fill``.
     """
-    out, valid = homography_warp(img, H33, fill=fill, eps=eps)
-    yo = torch.arange(img.shape[-2], dtype=img.dtype,
+    y0, n = (0, img.shape[-2]) if out_rows is None else out_rows
+    yo = torch.arange(y0, y0 + n, dtype=img.dtype,
                       device=img.device)[:, None]
+    xo = torch.arange(img.shape[-1], dtype=img.dtype,
+                      device=img.device)[None, :]
+    out, valid = _warp(img, H33, xo, yo, fill, eps)
     valid = valid & (torch.abs(H33[1, 1] - yo * H33[2, 1]) >= eps)
     return torch.where(valid, out, fill), valid
 

@@ -47,6 +47,9 @@ def gather_cols_bilinear(img, x):
     return (1.0 - ax) * v0 + ax * v1
 
 
+EPSILON = 1e-16
+
+
 def _columns(cols, Wi, img):
     """Output column coordinates: ``cols = (x0, w)`` gives x0 .. x0+w-1,
     None the whole width."""
@@ -54,26 +57,34 @@ def _columns(cols, Wi, img):
     return torch.arange(x0, x0 + w, dtype=img.dtype, device=img.device)
 
 
-def homography_warp(img, H33, fill=-1.0, eps=1e-6, cols=None):
+def homography_warp(img, H33, out_shape=None, fill=-1.0, eps=1e-6,
+                    cols=None):
     """Warp ``img`` (H, W) or (C, H, W) by pixel-space homographies
     ``H33`` (..., 3, 3): out[..., y', x'] = img(U, V) with
-    (U, V, 1) ~ H33 @ (x', y', 1).  ``cols = (x0, w)`` computes only the
-    output columns x0 .. x0+w-1 (each lane's arithmetic as in the whole
-    warp), still sampling the whole image.
+    (U, V, 1) ~ H33 @ (x', y', 1).  ``out_shape = (Ho, Wo)`` sets the
+    output grid (the image's by default).  ``cols = (x0, w)`` computes
+    only the output columns x0 .. x0+w-1 (each lane's arithmetic as in
+    the whole warp), still sampling the whole image.
 
-    Returns (warped (..., H, W), valid): ``valid`` marks lanes whose
+    Returns (warped (..., Ho, Wo), valid): ``valid`` marks lanes whose
     source is inside the image and in front of the projection plane
     (D > eps); invalid lanes hold ``fill``.
     """
+    Ho, Wo = img.shape[-2:] if out_shape is None else out_shape
+    yo = torch.arange(Ho, dtype=img.dtype, device=img.device)[:, None]
+    return _warp(img, H33, _columns(cols, Wo, img)[None, :], yo, fill, eps)
+
+
+def _warp(img, H33, xo, yo, fill, eps):
+    """The two-pass warp at output columns ``xo`` (1, w) and rows ``yo``
+    (h, 1): pass A runs over every row of the image, pass B gathers its
+    rows at the output lanes."""
     Hi, Wi = img.shape[-2:]
     f32 = img.dtype
     h = H33[..., None, None]          # broadcast each entry over (H, W)
     h00, h01, h02 = h[..., 0, 0, :, :], h[..., 0, 1, :, :], h[..., 0, 2, :, :]
     h10, h11, h12 = h[..., 1, 0, :, :], h[..., 1, 1, :, :], h[..., 1, 2, :, :]
     h20, h21, h22 = h[..., 2, 0, :, :], h[..., 2, 1, :, :], h[..., 2, 2, :, :]
-
-    xo = _columns(cols, Wi, img)[None, :]
-    yo = torch.arange(Hi, dtype=f32, device=img.device)[:, None]
 
     # direct maps for validity and for pass B's row coordinate
     D = h20 * xo + h21 * yo + h22
@@ -82,9 +93,10 @@ def homography_warp(img, H33, fill=-1.0, eps=1e-6, cols=None):
     V = (h10 * xo + h11 * yo + h12) / Dz
 
     # pass A: on ref row y, place img(a(x', y), y) at column x'
-    denom_a = h11 - yo * h21
+    yi = torch.arange(Hi, dtype=f32, device=img.device)[:, None]
+    denom_a = h11 - yi * h21
     denom_a = torch.where(torch.abs(denom_a) < eps, eps, denom_a)
-    y_src = (yo * (h20 * xo + h22) - (h10 * xo + h12)) / denom_a
+    y_src = (yi * (h20 * xo + h22) - (h10 * xo + h12)) / denom_a
     D_a = h20 * xo + h21 * y_src + h22
     a = (h00 * xo + h01 * y_src + h02) / torch.where(D_a == 0.0, eps, D_a)
     tmp = gather_cols_bilinear(img, a)

@@ -19,6 +19,7 @@ from scipy.spatial.transform import Rotation
 from tadataka_torch.camera import CameraModel, CameraParameters, RadTan
 from tadataka_torch.core.coordinates import image_coordinates
 from tadataka_torch.core.pose import Pose
+from tadataka_torch.dataset.base import BaseDataset
 from tadataka_torch.dataset.frame import Frame
 from tadataka_torch.dataset.image_io import imsave
 from tadataka_torch.dataset.tum_rgbd import (
@@ -76,25 +77,31 @@ def render_plane_scene(camera_model, pose_wc, image_shape,
     return image, best_s.reshape(H, W)
 
 
-class PlaneSceneDataset:
+class PlaneSceneDataset(BaseDataset):
     """n-frame synthetic sequence over textured planes, with exact poses
-    (camera -> world) and depth maps."""
+    (camera -> world) and depth maps.  ``poses`` defaults to
+    ``orbit_poses(n_frames)``; ``planes`` (a list of (origin, normal)
+    pairs) to the one plane (``plane_origin``, ``plane_normal``)."""
 
-    def __init__(self, poses, image_shape=(120, 160),
-                 focal_length=(120.0, 120.0), planes=None,
-                 texture=default_texture, device="cpu"):
+    def __init__(self, n_frames=6, image_shape=(120, 160),
+                 focal_length=(120.0, 120.0),
+                 plane_origin=(0.0, 0.0, 10.0),
+                 plane_normal=(0.1, -0.05, -1.0),
+                 texture=default_texture, poses=None, planes=None,
+                 device="cpu"):
         H, W = image_shape
+        self.length = n_frames
         self.image_shape = image_shape
         self.camera_model = CameraModel.create(CameraParameters.create(
             focal_length, (W / 2.0, H / 2.0), device=device))
-        self.planes = planes
+        self.planes = (planes if planes is not None
+                       else [(plane_origin, plane_normal)])
         self.texture = texture
-        self.poses = poses
+        self.poses = (poses if poses is not None
+                      else orbit_poses(n_frames, device=device))
+        assert len(self.poses) >= n_frames
 
-    def __len__(self):
-        return len(self.poses)
-
-    def __getitem__(self, index):
+    def load(self, index):
         pose = self.poses[index]
         image, depth = render_plane_scene(
             self.camera_model, pose, self.image_shape, texture=self.texture,
@@ -123,22 +130,21 @@ def multi_plane_scene(n_frames=6, image_shape=(120, 160),
                       focal_length=(120.0, 120.0), poses=None,
                       device="cpu"):
     """Three tilted planes at different depths (non-coplanar)."""
-    if poses is None:
-        poses = orbit_poses(n_frames, device=device)
-    return PlaneSceneDataset(poses[:n_frames], image_shape, focal_length,
-                             planes=MULTI_PLANES, device=device)
+    return PlaneSceneDataset(n_frames, image_shape, focal_length,
+                             poses=poses, planes=MULTI_PLANES, device=device)
 
 
 def export_tum_scene(root, n_frames=4, which_freiburg=1,
-                     image_shape=(480, 640)):
+                     image_shape=(480, 640), seed=0):
     """Render a textured plane THROUGH the freiburg camera (its RadTan
     distortion included: ``camera_model.normalize`` runs the Newton
     undistort) and write it to ``root`` in TUM RGB-D format: rgb.txt,
     depth.txt and groundtruth.txt, uint8 RGB PNGs, and uint16 depth PNGs
     at 5000 x the sequence's scale, both quantized by truncation.  The
     trajectory, plane and quantization are the JAX package's, and the
-    PNGs are written with the port's codec.  Returns the ground-truth
-    camera -> world Poses."""
+    PNGs are written with the port's codec.  ``seed`` is taken as the
+    JAX function takes it, and like it draws nothing: the scene is
+    deterministic.  Returns the ground-truth camera -> world Poses."""
     root = Path(root)
     (root / "rgb").mkdir(parents=True, exist_ok=True)
     (root / "depth").mkdir(exist_ok=True)

@@ -1,0 +1,1 @@
+from tadataka_torch.vo.dvo import PoseChangeEstimator  # noqa: F401

@@ -398,7 +398,7 @@ def test_animation_viewers_headless():
     poses = [Pose.from_rotvec(torch.zeros(3),
                               torch.tensor([0.05 * i, 0.0, 0.0]))
              for i in range(3)]
-    ds = PlaneSceneDataset(poses, image_shape=(48, 64),
+    ds = PlaneSceneDataset(len(poses), image_shape=(48, 64), poses=poses,
                            focal_length=(48.0, 48.0))
     est = DvoTrajectory(ds.camera_model, n_coarse_to_fine=2, max_iter=3,
                         device="cpu")

@@ -243,3 +243,34 @@ def test_pyramid_resize_matches_jax_image_resize(gen, level):
     shape = pyramid_shape(image.shape, level, 1.5)
     ref = np.asarray(jax.jit(jresize_image, static_argnums=1)(image, shape))
     close(resize_image(t(image), shape), ref, rtol=0, atol=5e-6)
+
+
+@pytest.mark.parametrize("out_shape", [(18, 30), (30, 52)])
+def test_homography_warp_out_shape(gen, out_shape):
+    """``out_shape`` sets the output grid, as in the JAX warp: the same
+    valid lanes, values within 2e-6."""
+    img = gen.random((24, 40)).astype(np.float32)
+    H33 = near_identity_homographies(gen, 1)[0]
+    out, valid = homography_warp(t(img), t(H33), out_shape, fill=-1.0)
+    ref, ref_valid = jhomography_warp(img, jnp.asarray(H33), out_shape,
+                                      fill=-1.0)
+    assert tuple(out.shape) == out_shape
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(ref_valid))
+    close(out, ref, atol=2e-6)
+    whole, _ = homography_warp(t(img), t(H33))
+    same = homography_warp(t(img), t(H33), tuple(img.shape))[0]
+    assert torch.equal(whole, same)
+
+
+def test_camera_matrix_and_warp_constants():
+    """``CameraParameters.matrix`` equals the JAX property; the warp
+    modules' EPSILON is the JAX package's."""
+    from tadataka_tpu.core import shiftwarp as jshiftwarp
+    from tadataka_tpu.core import warp2pass as jwarp2pass
+    from tadataka_torch.camera import CameraParameters
+    from tadataka_torch.core import shiftwarp, warp2pass
+    jcam = JCameraParameters.create((480.0, 470.0), (320.5, 240.25))
+    cam = CameraParameters.create((480.0, 470.0), (320.5, 240.25))
+    np.testing.assert_array_equal(cam.matrix.numpy(), np.asarray(jcam.matrix))
+    assert warp2pass.EPSILON == jwarp2pass.EPSILON
+    assert shiftwarp.EPSILON == jshiftwarp.EPSILON

@@ -315,3 +315,22 @@ def test_photometric_error_matches_jax(tum_like_frames):
             Pose(torch.tensor(np.asarray(jpose.R)),
                  torch.tensor(np.asarray(jpose.t)))))
         np.testing.assert_allclose(port, ref, rtol=1e-4)
+
+
+def test_export_tum_scene_seed(tmp_path):
+    """``seed`` is taken as the JAX exporter takes it and draws nothing:
+    the files are those of the default seed, byte for byte, and the
+    index files' timestamps are the JAX exporter's with that seed."""
+    export_tum_scene(tmp_path / "default", n_frames=2, image_shape=(12, 16))
+    export_tum_scene(tmp_path / "seeded", n_frames=2, image_shape=(12, 16),
+                     seed=7)
+    jexport(tmp_path / "jax", n_frames=2, image_shape=(12, 16), seed=7)
+    files = sorted(p.relative_to(tmp_path / "default")
+                   for p in (tmp_path / "default").rglob("*") if p.is_file())
+    assert len(files) == 7
+    for name in files:
+        assert (tmp_path / "seeded" / name).read_bytes() == \
+            (tmp_path / "default" / name).read_bytes(), name
+    for index in ("rgb.txt", "depth.txt"):
+        assert (tmp_path / "seeded" / index).read_text() == \
+            (tmp_path / "jax" / index).read_text()

@@ -162,3 +162,39 @@ def test_pipelined_devices(monkeypatch, scene):
     for devices in (("cpu", "cuda"), ("cuda:0", "cuda:1")):
         with pytest.raises(ValueError, match="both stages on one device"):
             PipelinedSemiDenseVO(cam, devices=devices)
+
+
+def test_pipelined_metrics_log_each_mapped_frame(scene):
+    """``metrics=`` gets one record a mapped frame (frames 1-4 of the
+    five, the last at the flush), each the planner's decision for that
+    frame as SemiDenseVO logs it, and leaves the states as they are
+    without it."""
+    from tadataka_torch.apps.semi_dense_vo import plan_record
+
+    class Log:
+        def __init__(self):
+            self.frames = []
+
+        def log_frame(self, frame_index, **values):
+            self.frames.append((frame_index, values))
+
+    frames, poses, jcam, jparams = scene
+    T10 = poses[1].inv() * poses[0]
+    states = []
+    for metrics in (None, Log()):
+        vo = port_app(jcam, jparams, T10)
+        vo.metrics = metrics
+        planned = []
+        plan_fn = vo._plan
+        vo._plan = lambda key_T: planned.append(plan_fn(key_T)) or planned[-1]
+        for frame in frames:
+            vo.estimate(np.asarray(frame.image))
+        states.append(interop.to_numpy(vo.flush_map()))
+    assert [k for k, _ in metrics.frames] == [1, 2, 3, 4]
+    assert [v for _, v in metrics.frames] == [plan_record(p)
+                                              for p in planned]
+    assert all(v["plan_n_planes"] > 0 for _, v in metrics.frames)
+    a, b = states
+    np.testing.assert_array_equal(pose_T(a), pose_T(b))
+    for name in ("depth_map", "variance_map", "age_map", "flag_map"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))

@@ -204,3 +204,27 @@ def test_update_depth_rect(flip):
     success = flags == int(Flag.SUCCESS)
     assert np.median(np.abs(depth - gt)[success]) < 0.5
     assert np.all(np.isfinite(variance)) and np.all(variance > 0)
+
+
+@pytest.mark.parametrize("out_rows", [(0, 12), (17, 9), (40, 8)])
+def test_rot_warp_out_rows(out_rows):
+    """``out_rows = (y0, n)`` gives rows y0 .. y0+n-1 of the whole warp
+    bit for bit, and matches the JAX row-block warp (budget 32) where
+    both are valid, as the whole warp does."""
+    _, kf, refs = scene((0.4, 0.1, 0.05), rotvec=(0.01, -0.02, 0.005))
+    T_rk = relative(kf, refs)
+    rect = jmake_rectification(jnp.asarray(T_rk), kf.focal_length,
+                               kf.offset, refs.focal_length[0],
+                               refs.offset[0], baseline_flip(T_rk))
+    image = np.asarray(refs.image[0])
+    y0, n = out_rows
+    whole, whole_valid = rot_warp(t(image), t(rect.H_ref_inv))
+    block, valid = rot_warp(t(image), t(rect.H_ref_inv), out_rows=out_rows)
+    assert torch.equal(block, whole[y0:y0 + n])
+    assert torch.equal(valid, whole_valid[y0:y0 + n])
+    ref, jvalid = (np.asarray(x) for x in jrot_warp(
+        jnp.asarray(image), rect.H_ref_inv, 32, 32, fill=-1.0,
+        out_rows=out_rows))
+    both = valid.numpy() & jvalid
+    np.testing.assert_allclose(block.numpy()[both], ref[both], atol=1e-4)
+    assert np.mean(valid.numpy() != jvalid) <= 0.02

@@ -114,7 +114,8 @@ def frames_of(config, root, package):
     f = c["focal"]
     poses = [Pose.from_rotvec(torch.from_numpy(r), torch.from_numpy(t))
              for r, t in trajectory(c["frames"])]
-    ds = PlaneSceneDataset(poses, (H, W), (f, f), planes=MULTI_PLANES,
+    ds = PlaneSceneDataset(len(poses), (H, W), (f, f), poses=poses,
+                           planes=MULTI_PLANES,
                            texture=_sharp_texture)
     camera_model = ds.camera_model
     if package == "jax":

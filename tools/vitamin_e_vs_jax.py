@@ -48,7 +48,8 @@ def frames(texture="default", n=N_FRAMES, shape=SHAPE, focal=FOCAL):
     poses = [Pose.from_rotvec(torch.tensor([0.0, 0.003 * i, 0.0]),
                               torch.tensor([0.15 * i, 0.01 * i, 0.0]))
              for i in range(n)]
-    ds = PlaneSceneDataset(poses, shape, (focal, focal), planes=MULTI_PLANES,
+    ds = PlaneSceneDataset(len(poses), shape, (focal, focal), poses=poses,
+                           planes=MULTI_PLANES,
                            texture=dict(default=default_texture,
                                         sharp=_sharp_texture)[texture])
     out = [ds[i] for i in range(n)]
