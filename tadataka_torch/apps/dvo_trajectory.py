@@ -17,6 +17,7 @@ from tadataka_torch.core.pose import Pose
 from tadataka_torch.core.rounding import matmul_small
 from tadataka_torch.dataset.image_io import rgb2gray
 from tadataka_torch.device import resolve_device
+from tadataka_torch.utils.timing import span, sync_point
 from tadataka_torch.vo.dvo import PoseChangeEstimator, estimate_pose_pyramid
 
 
@@ -44,12 +45,14 @@ class DvoTrajectory:
         self.trajectory = [self.pose_wc]
         self._prev = None
         self._prepared = {}
+        self._frame_id = 0
 
     def _prepare(self, frame):
         image = torch.from_numpy(rgb2gray(_host_array(frame.image)))
         depth = torch.as_tensor(_host_array(frame.depth_map),
                                 dtype=torch.float32)
-        return image.to(self.device), depth.to(self.device)
+        with sync_point("sync.dvo.image_upload", 2):
+            return image.to(self.device), depth.to(self.device)
 
     def prefetch(self, frame):
         """Convert and upload the frame now; a later ``estimate(frame)``
@@ -59,28 +62,34 @@ class DvoTrajectory:
     def estimate(self, frame):
         """frame: a Frame with .image and .depth_map.  Returns pose_wc
         (on the device)."""
-        prepared = self._prepared.pop(id(frame), None)
-        image, depth = (prepared if prepared is not None
-                        else self._prepare(frame))
-        if self._prev is not None:
-            prev_image, prev_depth = self._prev
-            e = self.estimator
-            weight_kind = (self.weights if isinstance(self.weights, str)
-                           else "none")
-            R10, t10 = estimate_pose_pyramid(
-                e.camera_model0, e.camera_model0, prev_image, prev_depth,
-                image, torch.ones_like(prev_image),
-                torch.eye(3, device=self.device),
-                torch.zeros(3, device=self.device), e.n_coarse_to_fine,
-                e.max_iter, e.layer_size_ratio, weight_kind, "ic",
-                e.grids(image.shape))
-            # pose_wc <- pose_wc * pose10^-1
-            R_new = matmul_small(self.pose_wc.R, R10.T)
-            t_new = self.pose_wc.t - matmul_small(R_new, t10[:, None])[:, 0]
-            self.pose_wc = Pose(R_new, t_new)
-            self.trajectory.append(self.pose_wc)
-        self._prev = (image, depth)
-        return self.pose_wc
+        with span("dvo.estimate", frame=self._frame_id):
+            self._frame_id += 1
+            with span("dvo.prepare"):
+                prepared = self._prepared.pop(id(frame), None)
+                image, depth = (prepared if prepared is not None
+                                else self._prepare(frame))
+            if self._prev is not None:
+                prev_image, prev_depth = self._prev
+                e = self.estimator
+                weight_kind = (self.weights if isinstance(self.weights, str)
+                               else "none")
+                with span("dvo.track"):
+                    R10, t10 = estimate_pose_pyramid(
+                        e.camera_model0, e.camera_model0, prev_image,
+                        prev_depth, image, torch.ones_like(prev_image),
+                        torch.eye(3, device=self.device),
+                        torch.zeros(3, device=self.device),
+                        e.n_coarse_to_fine, e.max_iter, e.layer_size_ratio,
+                        weight_kind, "ic", e.grids(image.shape))
+                with span("dvo.compose"):
+                    # pose_wc <- pose_wc * pose10^-1
+                    R_new = matmul_small(self.pose_wc.R, R10.T)
+                    t_new = self.pose_wc.t - matmul_small(
+                        R_new, t10[:, None])[:, 0]
+                    self.pose_wc = Pose(R_new, t_new)
+                    self.trajectory.append(self.pose_wc)
+            self._prev = (image, depth)
+            return self.pose_wc
 
     def positions(self):
         return np.stack([p.t.cpu().numpy() for p in self.trajectory])

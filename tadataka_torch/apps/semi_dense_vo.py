@@ -26,6 +26,7 @@ from tadataka_torch.core.rounding import as_divisor, matmul_small
 from tadataka_torch.core.transforms import inv_motion_matrix, motion_matrix
 from tadataka_torch.dataset.image_io import rgb2gray
 from tadataka_torch.device import resolve_device
+from tadataka_torch.utils.timing import count, span, sync_point
 from tadataka_torch.vo.dvo import estimate_pose_pyramid
 from tadataka_torch.vo.semi_dense import (
     SemiDenseParams, make_frame, stack_frames, propagate, increment_age,
@@ -69,7 +70,8 @@ def prepare_image(frame, device):
         image = image.detach().cpu().numpy()
     gray = rgb2gray(image)
     u8 = np.clip(np.round(gray * 255.0), 0, 255).astype(np.uint8)
-    return torch.from_numpy(u8).to(device)
+    with sync_point("sync.sd.image_upload"):
+        return torch.from_numpy(u8).to(device)
 
 
 def track(camera_model, I0, D0, V0, I1, n_levels):
@@ -101,16 +103,18 @@ def update(cam, params, image, T_wk, ref_frames, age1, d1, v1, plan,
     keyframe = make_frame(cam, image, T_wk)
     refs = stack_frames(ref_frames)
     age_c = torch.clamp(age1, 0, refs.image.shape[0])
-    if plan is None:
-        d2, v2, flags = update_depth(keyframe, refs, age_c, d1, v1, params,
-                                     n_ref_samples=n_ref_samples,
-                                     fuse_prior=fuse_prior)
-    else:
-        d2, v2, flags = update_depth_fast(keyframe, refs, age_c, d1, v1,
-                                          params, plan=plan,
-                                          fuse_prior=fuse_prior)
+    with span("sd.sweep"):
+        if plan is None:
+            d2, v2, flags = update_depth(keyframe, refs, age_c, d1, v1,
+                                         params, n_ref_samples=n_ref_samples,
+                                         fuse_prior=fuse_prior)
+        else:
+            d2, v2, flags = update_depth_fast(keyframe, refs, age_c, d1, v1,
+                                              params, plan=plan,
+                                              fuse_prior=fuse_prior)
     if regularize_depth:
-        d2 = regularize(d2, v2, flags)
+        with span("sd.regularize"):
+            d2 = regularize(d2, v2, flags)
     return d2, v2, flags
 
 
@@ -200,32 +204,38 @@ class SemiDenseVO:
             return
         if not force and len(self._pending) < self.pose_drain_interval:
             return
-        for fid, T10_dev in self._pending:
-            self._T10_host = T10_dev.cpu().numpy().astype(np.float64)
-            self._pose_wc_host = (
-                self._pose_wc_host @ np.linalg.inv(self._T10_host))
-            if fid in self._ref_ids:
-                self._ref_Ts_host[self._ref_ids.index(fid)] = \
-                    self._pose_wc_host
-        self._pending = []
+        with span("sd.drain"):
+            for fid, T10_dev in self._pending:
+                with sync_point("sync.sd.drain"):
+                    T10 = T10_dev.cpu()
+                self._T10_host = T10.numpy().astype(np.float64)
+                self._pose_wc_host = (
+                    self._pose_wc_host @ np.linalg.inv(self._T10_host))
+                if fid in self._ref_ids:
+                    self._ref_Ts_host[self._ref_ids.index(fid)] = \
+                        self._pose_wc_host
+            self._pending = []
 
     def _plan(self, key_T_pred):
         """Plan the update from the host estimate of the keyframe pose,
         memoized on the rounded relative transforms."""
-        n = min(len(self._ref_Ts_host), self.history_size)
-        ref_Ts = np.stack(self._ref_Ts_host[-n:])
-        rels = np.stack([np.linalg.inv(T) @ key_T_pred for T in ref_Ts])
-        key = (n, tuple(np.round(rels[:, :3, :].ravel(), 3)))
-        hit = self._plan_cache.get(key)
-        if hit is not None:
-            return hit
-        f = np.broadcast_to(self._focal_np, (n, 2))
-        c = np.broadcast_to(self._offset_np, (n, 2))
-        plan = plan_update_np(key_T_pred, self._focal_np, self._offset_np,
-                              self._image_shape, ref_Ts, f, c,
-                              self._q0, self._q1)
-        self._plan_cache[key] = plan
-        return plan
+        with span("sd.plan"):
+            n = min(len(self._ref_Ts_host), self.history_size)
+            ref_Ts = np.stack(self._ref_Ts_host[-n:])
+            rels = np.stack([np.linalg.inv(T) @ key_T_pred for T in ref_Ts])
+            key = (n, tuple(np.round(rels[:, :3, :].ravel(), 3)))
+            hit = self._plan_cache.get(key)
+            if hit is not None:
+                count("plan.hit")
+                return hit
+            count("plan.miss")
+            f = np.broadcast_to(self._focal_np, (n, 2))
+            c = np.broadcast_to(self._offset_np, (n, 2))
+            plan = plan_update_np(key_T_pred, self._focal_np,
+                                  self._offset_np, self._image_shape, ref_Ts,
+                                  f, c, self._q0, self._q1)
+            self._plan_cache[key] = plan
+            return plan
 
     # ---------------------------------------------------------- per frame
 
@@ -236,12 +246,17 @@ class SemiDenseVO:
 
     def estimate(self, frame):
         """Process a frame (a Frame or a raw image).  Returns the state."""
-        image_u8 = self._prepared.pop(id(frame), None)
-        if image_u8 is None:
-            image_u8 = prepare_image(frame, self.device)
-        if self.state is None:
-            return self._initialize(image_u8)
+        with span("sd.estimate", frame=self._frame_id):
+            with span("sd.prepare"):
+                image_u8 = self._prepared.pop(id(frame), None)
+                if image_u8 is None:
+                    image_u8 = prepare_image(frame, self.device)
+            if self.state is None:
+                return self._initialize(image_u8)
+            return self._step(image_u8)
 
+    def _step(self, image_u8):
+        """A frame past the first: track, propagate, plan, update."""
         prev = self.state
         # early frames force-drain: until the first real T10 lands the
         # constant-velocity prediction is the identity
@@ -252,42 +267,48 @@ class SemiDenseVO:
                      and self.initial_pose_fn is not None)
         if bootstrap:
             pose10 = self.initial_pose_fn(self._prev_image, image)
-            T10 = pose10.T.to(device=self.device, dtype=torch.float32)
+            with sync_point("sync.sd.bootstrap_pose"):
+                T10 = pose10.T.to(device=self.device, dtype=torch.float32)
             self._T10_host = pose10.T.detach().cpu().numpy().astype(
                 np.float64)
             self._pose_wc_host = (
                 self._pose_wc_host @ np.linalg.inv(self._T10_host))
             push_T_host = self._pose_wc_host               # exact
         else:
-            T10 = track(self._camera_model, self._prev_image,
-                        prev.depth_map, prev.variance_map, image,
-                        self.n_coarse_to_fine)
+            with span("sd.track"):
+                T10 = track(self._camera_model, self._prev_image,
+                            prev.depth_map, prev.variance_map, image,
+                            self.n_coarse_to_fine)
             # constant-velocity prediction over the undrained frames
             inv_T = np.linalg.inv(self._T10_host)
             push_T_host = self._pose_wc_host.copy()
             for _ in range(len(self._pending) + 1):
                 push_T_host = push_T_host @ inv_T
         T_wk = matmul_small(prev.pose_wc.T, inv_motion_matrix(T10))
-        depth1, variance1, age1 = propagate_step(
-            cam, T10, prev.depth_map, prev.variance_map, prev.age_map,
-            self.default_depth, self.default_variance,
-            self.uncertainty_bias)
+        with span("sd.propagate"):
+            depth1, variance1, age1 = propagate_step(
+                cam, T10, prev.depth_map, prev.variance_map, prev.age_map,
+                self.default_depth, self.default_variance,
+                self.uncertainty_bias)
         plan = (self._plan(push_T_host) if self.depth_update == "fast"
                 else None)
         refs = tuple(self.refframes[-self.history_size:])
-        depth1, variance1, flags = update(
-            cam, self.params, image, T_wk, refs, age1, depth1, variance1,
-            plan, self.regularize_depth, self.fuse_prior, self.n_ref_samples)
+        with span("sd.update"):
+            depth1, variance1, flags = update(
+                cam, self.params, image, T_wk, refs, age1, depth1,
+                variance1, plan, self.regularize_depth, self.fuse_prior,
+                self.n_ref_samples)
         if not bootstrap:
             self._pending.append((self._frame_id, T10))
 
         if self.metrics is not None:
             self.metrics.log_frame(self._frame_id, **plan_record(plan))
-        self._push_refframe(
-            SemiDenseFrame(cam.focal_length, cam.offset, image, T_wk),
-            push_T_host)
-        self.state = SemiDenseVOState(Pose.from_matrix(T_wk), depth1,
-                                      variance1, age1, flags)
+        with span("sd.push"):
+            self._push_refframe(
+                SemiDenseFrame(cam.focal_length, cam.offset, image, T_wk),
+                push_T_host)
+            self.state = SemiDenseVOState(Pose.from_matrix(T_wk), depth1,
+                                          variance1, age1, flags)
         self._prev_image = image
         return self.state
 
@@ -301,8 +322,9 @@ class SemiDenseVO:
                                     dtype=torch.float32, device=self.device)
         else:
             depth = torch.from_numpy(
-                rng.uniform(*self.depth_range, (H, W)).astype(np.float32)
-            ).to(self.device)
+                rng.uniform(*self.depth_range, (H, W)).astype(np.float32))
+            with sync_point("sync.sd.initial_map"):
+                depth = depth.to(self.device)
         if self.initial_variance_map is not None:
             variance = torch.as_tensor(self.initial_variance_map,
                                        dtype=torch.float32,

@@ -15,6 +15,8 @@ the same reason (``vo/dvo.py``).
 
 import torch
 
+from tadataka_torch.utils.timing import sync_point
+
 
 def on_host(fn, *args):
     """fn(*args) with its tensor arguments on the host: CUDA float32
@@ -25,7 +27,9 @@ def on_host(fn, *args):
     device = tensors[0].device
     if device.type == "cpu":
         return fn(*args)
-    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu()
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    with sync_point("sync.solvers.on_host"):
+        flat = flat.cpu()
     parts = iter(torch.split(flat, [t.numel() for t in tensors]))
     out = fn(*(next(parts).reshape(a.shape)
                if isinstance(a, torch.Tensor) else a for a in args))

@@ -5,6 +5,7 @@ Matrix products go through ``matmul_small`` (see ``core/rounding.py``)."""
 import torch
 
 from tadataka_torch.core.rounding import matmul_small
+from tadataka_torch.utils.timing import sync_point
 
 
 def to_homogeneous(X):
@@ -23,7 +24,8 @@ def motion_matrix(R, t):
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    with sync_point("sync.transforms.motion_matrix"):
+        T[..., 3, 3] = 1.0    # the host scalar's copy to a card can block
     return T
 
 

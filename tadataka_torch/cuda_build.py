@@ -18,6 +18,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from tadataka_torch.utils.timing import count, span
+
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tadataka_torch"
 
 # --fmad=false and no fast math: every product and sum is rounded as in
@@ -49,14 +51,22 @@ def _nvcc():
 
 def build(source: Path, defines=()) -> BuiltLibrary:
     """Compile ``source`` (if its hashed library is absent) and load it;
-    ``defines``: (name, value) pairs passed to nvcc as -Dname=value."""
+    ``defines``: (name, value) pairs passed to nvcc as -Dname=value.
+    Marked as the span "cuda_build.<stem>", a compile counted as
+    "cuda_build.compile"."""
     source = Path(source)
+    with span("cuda_build." + source.stem):
+        return _build(source, defines)
+
+
+def _build(source, defines):
     flags = NVCC_FLAGS + tuple(f"-D{name}={value}" for name, value in defines)
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
+        count("cuda_build.compile")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)

@@ -4,7 +4,8 @@
 Per-frame metric records (pose, timing, flag histogram, inlier counts)
 accumulate into a jsonl-serializable log (``SemiDenseVO(metrics=)``
 takes a :class:`MetricsLogger`), and :func:`profile_trace` wraps
-``torch.profiler``, writing a Chrome trace.
+``torch.profiler``, writing a Chrome trace that holds the program's
+spans (``utils/timing.py``) as user annotations.
 """
 
 import contextlib
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from tadataka_torch.flags import Flag, flag_histogram
+from tadataka_torch.utils import timing
 
 
 class MetricsLogger:
@@ -67,14 +69,17 @@ def flag_stats(flag_map):
 @contextlib.contextmanager
 def profile_trace(logdir):
     """``torch.profiler`` over the block (CPU, and the card's kernels
-    where there is one); writes ``trace.json`` (Chrome trace format) into
-    ``logdir`` and yields the profiler."""
+    where there is one), with the program's spans traced unless a
+    ``timing.trace()`` block is already open; writes ``trace.json``
+    (Chrome trace format) into ``logdir`` and yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    spans = (contextlib.nullcontext() if timing.tracing()
+             else timing.trace())
+    with profile(activities=activities) as prof, spans:
         yield prof
     prof.export_chrome_trace(os.path.join(str(logdir), "trace.json"))
 

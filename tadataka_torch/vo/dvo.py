@@ -15,8 +15,10 @@ fixed-order pairwise reduction (``rounding.fixed_order_sum``), the
 pyramid resize sums its few nonzero taps left to right, the robust
 weights sort and sum in fixed orders, and the 6x6 float32 solve
 (``torch.linalg.solve``, TF32 off) with the pose update runs on the
-host.  Fetching the normal equations is the one host sync per iteration
-that reading the stop flag costs anyway.
+host.  On a card each iteration synchronizes the host three times: the
+pose's two uploads and the fetch of the normal equations, which the
+stop test needs anyway; each level adds the pose's fetch, the best
+pose's upload and the upper-triangle index (``sync.dvo.*`` marks).
 """
 
 import math
@@ -31,6 +33,7 @@ from tadataka_torch.core.pose import Pose
 from tadataka_torch.core.rounding import as_divisor, fixed_order_sum
 from tadataka_torch.robust.weights import (
     compute_weights_huber, compute_weights_student_t, compute_weights_tukey)
+from tadataka_torch.utils.timing import count, span, sync_point
 
 WEIGHT_KINDS = ("none", "map", "depth-var", "tukey", "student-t", "huber")
 METHODS = ("ic", "fc")
@@ -76,6 +79,12 @@ def _in_image_xy(x, y, shape):
 _UPPER = torch.triu_indices(6, 6)        # the 21 entries of J^T W J
 
 
+def _upper_index(device):
+    """(columns, rows) of ``_UPPER`` on ``device``."""
+    with sync_point("sync.dvo.upper_index", 2):
+        return _UPPER[1].to(device), _UPPER[0].to(device)
+
+
 def _normal_equations(Jt, Jt_upper, upper_rows, w, residuals, mask):
     """J^T W J (6, 6), J^T W r (6,), the sum of squared residuals and the
     number of valid pixels, on the host.  ``Jt`` (6, N) are the Jacobian
@@ -84,7 +93,9 @@ def _normal_equations(Jt, Jt_upper, upper_rows, w, residuals, mask):
     Jw = Jt * w
     sums = fixed_order_sum(torch.cat([
         Jw[upper_rows] * Jt_upper, Jw * residuals,
-        (residuals * residuals)[None], mask.to(w.dtype)[None]])).cpu()
+        (residuals * residuals)[None], mask.to(w.dtype)[None]]))
+    with sync_point("sync.dvo.sums"):
+        sums = sums.cpu()
     JtJ = torch.zeros((6, 6), dtype=sums.dtype)
     JtJ[_UPPER[0], _UPPER[1]] = sums[:21]
     JtJ[_UPPER[1], _UPPER[0]] = sums[:21]
@@ -145,20 +156,28 @@ def _gauss_newton(R10, t10, max_iter, device, iteration, compose):
     normal equations, the sum of squared residuals and the valid count
     on the host; ``compose(R, t, xi)`` applies the step.  Returns the
     best (R10, t10) seen, on ``device``."""
-    R, t = R10.cpu(), t10.cpu()
+    with sync_point("sync.dvo.pose_to_host", 2):
+        R, t = R10.cpu(), t10.cpu()
     eye6 = torch.eye(6, dtype=R.dtype)
     R_best, t_best = R, t
     prev_error = torch.tensor(float("inf"), dtype=R.dtype)
     for _ in range(max_iter + 1):
-        JtJ, Jtr, rr, n_valid = iteration(R.to(device), t.to(device))
-        curr_error = rr / torch.clamp(n_valid, min=1.0)
-        improved = bool(curr_error < prev_error)
-        if improved:
-            R_best, t_best, prev_error = R, t, curr_error
-        if n_valid == 0 or not improved:
-            break
-        R, t = compose(R, t, torch.linalg.solve(JtJ + 1e-12 * eye6, Jtr))
-    return R_best.to(device), t_best.to(device)
+        with span("dvo.gn_iter"):
+            count("dvo.gn_iter")
+            with sync_point("sync.dvo.pose_to_card", 2):
+                R_dev, t_dev = R.to(device), t.to(device)
+            JtJ, Jtr, rr, n_valid = iteration(R_dev, t_dev)
+            curr_error = rr / torch.clamp(n_valid, min=1.0)
+            improved = bool(curr_error < prev_error)
+            if improved:
+                R_best, t_best, prev_error = R, t, curr_error
+            if n_valid == 0 or not improved:
+                break
+            with span("dvo.solve"):
+                R, t = compose(R, t,
+                               torch.linalg.solve(JtJ + 1e-12 * eye6, Jtr))
+    with sync_point("sync.dvo.best_to_card", 2):
+        return R_best.to(device), t_best.to(device)
 
 
 def _estimate_level_ic(camera_model0, camera_model1, I0, D0, I1, weight_map,
@@ -169,16 +188,17 @@ def _estimate_level_ic(camera_model0, camera_model1, I0, D0, I1, weight_map,
     ``grid``: the level's normalized pixel grid (see
     :func:`normalized_grids`).  Returns (R10, t10) on I0's device."""
     device = I0.device
-    p0x, p0y, p0z = _template_points(camera_model0, D0, grid)
-    GX0, GY0 = np_gradient_2d(I0)
-    gx0, gy0 = GX0.ravel(), GY0.ravel()
-    i0 = I0.ravel()
-    wmap = weight_map.ravel()
-    focal_length = camera_model0.camera_parameters.focal_length
-    Jt = torch.stack(calc_jacobian_cols(
-        focal_length, gx0, gy0, p0x, p0y, torch.clamp(p0z, min=1e-6)))
-    Jt_upper = Jt[_UPPER[1].to(device)]
-    upper_rows = _UPPER[0].to(device)
+    with span("dvo.template"):
+        p0x, p0y, p0z = _template_points(camera_model0, D0, grid)
+        GX0, GY0 = np_gradient_2d(I0)
+        gx0, gy0 = GX0.ravel(), GY0.ravel()
+        i0 = I0.ravel()
+        wmap = weight_map.ravel()
+        focal_length = camera_model0.camera_parameters.focal_length
+        Jt = torch.stack(calc_jacobian_cols(
+            focal_length, gx0, gy0, p0x, p0y, torch.clamp(p0z, min=1e-6)))
+        upper_cols, upper_rows = _upper_index(device)
+        Jt_upper = Jt[upper_cols]
 
     def iteration(R, t):
         p1x, p1y, p1z, us1x, us1y, mask = _warp_points(
@@ -217,8 +237,7 @@ def _estimate_level(camera_model0, camera_model1, I0, D0, I1, weight_map,
     i0 = I0.ravel()
     wmap = weight_map.ravel()
     focal_length = camera_model1.camera_parameters.focal_length
-    upper_cols = _UPPER[1].to(device)
-    upper_rows = _UPPER[0].to(device)
+    upper_cols, upper_rows = _upper_index(device)
 
     def iteration(R, t):
         p1x, p1y, p1z, us1x, us1y, mask = _warp_points(
@@ -338,15 +357,17 @@ def estimate_pose_pyramid(camera_model0, camera_model1, I0, D0, I1,
     level_fn = _estimate_level_ic if method == "ic" else _estimate_level
     R, t = R10, t10
     for k, level in enumerate(reversed(range(n_levels))):
-        scale = level_to_scale(level, layer_size_ratio)
-        shape = pyramid_shape(I0.shape, level, layer_size_ratio)
-        R, t = level_fn(
-            camera_resize(camera_model0, scale),
-            camera_resize(camera_model1, scale),
-            resize_image(I0, shape), resize_image(D0, shape),
-            resize_image(I1, shape), resize_image(weight_map, shape),
-            R, t, max_iter, weight_kind,
-            grid=None if grids is None else grids[k])
+        with span("dvo.level", level=level):
+            scale = level_to_scale(level, layer_size_ratio)
+            shape = pyramid_shape(I0.shape, level, layer_size_ratio)
+            with span("dvo.resize"):
+                images = [resize_image(x, shape)
+                          for x in (I0, D0, I1, weight_map)]
+            R, t = level_fn(
+                camera_resize(camera_model0, scale),
+                camera_resize(camera_model1, scale), *images,
+                R, t, max_iter, weight_kind,
+                grid=None if grids is None else grids[k])
     return R, t
 
 

@@ -19,6 +19,7 @@ from tadataka_torch.core.warp import warp2d
 from tadataka_torch.vo.semi_dense.age import target_cells
 from tadataka_torch.vo.semi_dense.fusion import are_statistically_same
 from tadataka_torch.vo.semi_dense.estimator import safe_invert
+from tadataka_torch.utils.timing import sync_point
 
 
 def scatter_add(n, index, values):
@@ -80,10 +81,10 @@ def propagate(T10, camera_params0, camera_params1, depth_map0, variance_map0,
     occupied = torch.isfinite(win_depth) & (sum_w > 0)
     fused_inv = sum_mu / torch.clamp(sum_w, min=1e-12)
     fused_var = 1.0 / torch.clamp(sum_w, min=1e-12)
-    depth1 = torch.where(occupied, safe_invert(fused_inv),
-                         torch.as_tensor(default_depth, dtype=f32,
-                                         device=device))
-    variance1 = torch.where(occupied, fused_var,
-                            torch.as_tensor(default_variance, dtype=f32,
-                                            device=device))
+    with sync_point("sync.propagation.defaults", 2):
+        default_d = torch.as_tensor(default_depth, dtype=f32, device=device)
+        default_v = torch.as_tensor(default_variance, dtype=f32,
+                                    device=device)
+    depth1 = torch.where(occupied, safe_invert(fused_inv), default_d)
+    variance1 = torch.where(occupied, fused_var, default_v)
     return depth1.reshape(H, W), variance1.reshape(H, W)

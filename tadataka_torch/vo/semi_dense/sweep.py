@@ -32,6 +32,7 @@ from tadataka_torch.vo.semi_dense.fusion import fusion
 from tadataka_torch.vo.semi_dense.hypothesis import (
     clamped_range, check_args_flag)
 from tadataka_torch.vo.semi_dense.params import N_KEY_SAMPLES
+from tadataka_torch.utils.timing import sync_point
 
 DEFAULT_N_PLANES = 64
 _INF = 3.0e38
@@ -45,7 +46,8 @@ def plane_homography(T_rk, q, key_focal, key_offset, ref_focal, ref_offset):
     dtype, device = T_rk.dtype, T_rk.device
     R = get_rotation(T_rk)
     t = get_translation(T_rk)
-    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    with sync_point("sync.sweep.e3"):
+        e3 = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
     q = torch.as_tensor(q, dtype=dtype, device=device)[..., None, None]
     A = R + q * t[:, None] * e3[None, :]
     zero = torch.zeros((), dtype=dtype, device=device)
@@ -454,7 +456,9 @@ def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
     prior_v = prior_variance.ravel().to(f32)
     prior_inv = safe_invert(prior_depth.ravel().to(f32))
     ridx = torch.clamp(R_frames - age, 0, R_frames - 1).to(torch.int64)
-    ridx = torch.tensor(redirect, dtype=torch.int64, device=device)[ridx]
+    with sync_point("sync.sweep.redirect"):
+        redirect_t = torch.tensor(redirect, dtype=torch.int64, device=device)
+    ridx = redirect_t[ridx]
     active = sorted(set(redirect))
 
     key_shape = tuple(keyframe.image.shape)
