@@ -29,7 +29,9 @@ def _masked_median(x, mask):
     last = x.shape[0] - 1
     hi = torch.clamp(n_valid // 2, 0, last)
     lo = torch.clamp((n_valid - 1) // 2, 0, last)
-    return 0.5 * (vals[lo] + vals[hi])
+    # gathered: indexing by a 0-d tensor reads the index on the host
+    v_lo, v_hi = torch.gather(vals, 0, torch.stack([lo, hi]))
+    return 0.5 * (v_lo + v_hi)
 
 
 def median_absolute_deviation(x, mask=None):

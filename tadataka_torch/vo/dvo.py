@@ -15,13 +15,24 @@ fixed-order pairwise reduction (``rounding.fixed_order_sum``), the
 pyramid resize sums its few nonzero taps left to right, the robust
 weights sort and sum in fixed orders, and the 6x6 float32 solve
 (``torch.linalg.solve``, TF32 off) with the pose update runs on the
-host.  On a card each iteration synchronizes the host three times: the
-pose's two uploads and the fetch of the normal equations, which the
-stop test needs anyway; each level adds the pose's fetch, the best
-pose's upload and the upper-triangle index (``sync.dvo.*`` marks).
+host.
+
+On a card each level's iteration body (the warp, the bilinear sample,
+the residuals, the weights, the Jacobian products and the fixed-order
+sums of the normal equations) is one CUDA graph: a ``_LevelGraph``,
+kept in ``_graphs`` per device, stream, level shape, method, weight kind
+and distortion, captured on the first call that meets that key and
+replayed on every iteration after.  The graph replays the kernels the
+eager body launches, so the bits stay those of the CPU.  Each level's
+template stage copies its outputs into the graph's static inputs; the
+pose goes in through a pinned host buffer without blocking.  So each
+iteration synchronizes the host once, to fetch the 29 sums that the
+stop test needs; each level adds the pose's fetch, the best pose's
+upload and the upper-triangle index (``sync.dvo.*`` marks).
 """
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -85,15 +96,22 @@ def _upper_index(device):
         return _UPPER[1].to(device), _UPPER[0].to(device)
 
 
-def _normal_equations(Jt, Jt_upper, upper_rows, w, residuals, mask):
-    """J^T W J (6, 6), J^T W r (6,), the sum of squared residuals and the
-    number of valid pixels, on the host.  ``Jt`` (6, N) are the Jacobian
-    rows, ``Jt_upper`` = Jt[_UPPER[1]] and ``upper_rows`` = _UPPER[0] on
-    Jt's device."""
+def _normal_sums(Jt, Jt_upper, upper_rows, w, residuals, mask):
+    """The device half of the normal equations: one (29,) tensor on Jt's
+    device of the 21 entries of J^T W J's upper triangle, J^T W r (6),
+    the sum of squared residuals and the number of valid pixels.  ``Jt``
+    (6, N) are the Jacobian rows, ``Jt_upper`` = Jt[_UPPER[1]] and
+    ``upper_rows`` = _UPPER[0] on Jt's device."""
     Jw = Jt * w
-    sums = fixed_order_sum(torch.cat([
+    return fixed_order_sum(torch.cat([
         Jw[upper_rows] * Jt_upper, Jw * residuals,
         (residuals * residuals)[None], mask.to(w.dtype)[None]]))
+
+
+def _normal_equations(sums):
+    """The host half: J^T W J (6, 6), J^T W r (6,), the sum of squared
+    residuals and the number of valid pixels, on the host, from the
+    (29,) sums of :func:`_normal_sums`."""
     with sync_point("sync.dvo.sums"):
         sums = sums.cpu()
     JtJ = torch.zeros((6, 6), dtype=sums.dtype)
@@ -150,12 +168,102 @@ def _warp_points(R, t, p0x, p0y, p0z, camera_model1, shape):
     return p1x, p1y, p1z, us1x, us1y, mask
 
 
+def _leaves(x):
+    """The tensors of a body input: a tensor, or a (named) tuple of them
+    such as a camera model."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [leaf for part in x for leaf in _leaves(part)]
+
+
+def _empty_like(x):
+    if isinstance(x, torch.Tensor):
+        return torch.empty_like(x)
+    return type(x)(*map(_empty_like, x))
+
+
+class _LevelGraph:
+    """A level's iteration body on a card, captured as a CUDA graph over
+    static copies of its inputs and of the pose, and replayed on every
+    iteration.  ``load`` copies a level call's inputs in (on the current
+    stream, after what the caller issued there); a call stages the host
+    pose in pinned memory, copies it in without blocking and replays.
+    Reusing the staging buffer is safe: every replay is followed by the
+    fetch of its sums (``_normal_equations``), which drains the stream."""
+
+    def __init__(self, body, inputs, pose_dtype):
+        self.body = body
+        self.inputs = {name: _empty_like(x) for name, x in inputs.items()}
+        self.device = inputs["I1"].device
+        self.pose = torch.empty(12, dtype=pose_dtype, device=self.device)
+        self.staging = torch.empty(12, dtype=pose_dtype, pin_memory=True)
+        self.graph = self.sums = None
+
+    def load(self, inputs):
+        for name, x in inputs.items():
+            for static, value in zip(_leaves(self.inputs[name]),
+                                     _leaves(x)):
+                static.copy_(value)
+
+    def _body(self):
+        return self.body(self.pose[:9].view(3, 3), self.pose[9:],
+                         **self.inputs)
+
+    def _capture(self):
+        # one eager run first, on a side stream: lazy set-up (a table
+        # made on first use, a library handle) may not run in a capture
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            sums = self._body()
+        self.graph, self.sums = graph, sums
+        count("dvo.graph_capture")
+
+    def __call__(self, R, t):
+        """The (29,) sums at the host pose (R, t), on the card."""
+        self.staging[:9].copy_(R.reshape(-1))
+        self.staging[9:].copy_(t)
+        with torch.cuda.device(self.device):
+            self.pose.copy_(self.staging, non_blocking=True)
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+        count("dvo.graph_replay")
+        return self.sums
+
+
+_graphs = {}   # (device, stream, method, weight kind, ...) -> _LevelGraph
+
+
+def _level_iteration(body, inputs, method, weight_kind, pose_dtype):
+    """``iteration(R, t)``: the (29,) normal-equation sums of
+    ``body(R, t, **inputs)`` at the host pose (R, t), on the inputs'
+    device.  The CPU runs the body eagerly; a card replays the graph of
+    the level's key, captured on the first call that meets it."""
+    device = inputs["I1"].device
+    if device.type != "cuda":
+        return lambda R, t: body(R, t, **inputs)
+    key = (device, torch.cuda.current_stream(device).cuda_stream, method,
+           weight_kind, type(inputs["camera_model1"].distortion_model),
+           pose_dtype, tuple((name, x.dtype, tuple(x.shape))
+                             for name, value in inputs.items()
+                             for x in _leaves(value)))
+    graph = _graphs.get(key)
+    if graph is None:
+        graph = _graphs[key] = _LevelGraph(body, inputs, pose_dtype)
+    graph.load(inputs)
+    return graph
+
+
 def _gauss_newton(R10, t10, max_iter, device, iteration, compose):
     """The Gauss-Newton loop with the error-increase stop, the pose on
-    the host.  ``iteration(R, t)`` (R, t on ``device``) returns the
-    normal equations, the sum of squared residuals and the valid count
-    on the host; ``compose(R, t, xi)`` applies the step.  Returns the
-    best (R10, t10) seen, on ``device``."""
+    the host.  ``iteration(R, t)`` (R, t on the host) returns the normal
+    equations' (29,) sums on ``device``; ``compose(R, t, xi)`` applies
+    the step.  Returns the best (R10, t10) seen, on ``device``."""
     with sync_point("sync.dvo.pose_to_host", 2):
         R, t = R10.cpu(), t10.cpu()
     eye6 = torch.eye(6, dtype=R.dtype)
@@ -164,9 +272,7 @@ def _gauss_newton(R10, t10, max_iter, device, iteration, compose):
     for _ in range(max_iter + 1):
         with span("dvo.gn_iter"):
             count("dvo.gn_iter")
-            with sync_point("sync.dvo.pose_to_card", 2):
-                R_dev, t_dev = R.to(device), t.to(device)
-            JtJ, Jtr, rr, n_valid = iteration(R_dev, t_dev)
+            JtJ, Jtr, rr, n_valid = _normal_equations(iteration(R, t))
             curr_error = rr / torch.clamp(n_valid, min=1.0)
             improved = bool(curr_error < prev_error)
             if improved:
@@ -178,6 +284,27 @@ def _gauss_newton(R10, t10, max_iter, device, iteration, compose):
                                torch.linalg.solve(JtJ + 1e-12 * eye6, Jtr))
     with sync_point("sync.dvo.best_to_card", 2):
         return R_best.to(device), t_best.to(device)
+
+
+def _ic_sums(weight_kind, R, t, camera_model1, p0x, p0y, p0z, i0, I1, wmap,
+             Jt, Jt_upper, upper_rows, gx0, gy0, focal_length):
+    """The inverse-compositional iteration body: the normal-equation sums
+    at (R, t), the Jacobian fixed on the template."""
+    p1x, p1y, p1z, us1x, us1y, mask = _warp_points(
+        R, t, p0x, p0y, p0z, camera_model1, I1.shape)
+    i1 = interpolate(I1, torch.stack([us1x, us1y], dim=-1))
+    residuals = torch.where(mask, i1 - i0, 0.0)   # IC sign convention
+    dr_dq = None
+    if weight_kind == "depth-var":
+        # d(residual)/d(inverse depth): the template gradient dotted
+        # with the warp's depth derivative
+        z2 = p1z * p1z + 1e-12
+        dxdq = p0z * (t[0] * p1z - t[2] * p1x) / z2
+        dydq = p0z * (t[1] * p1z - t[2] * p1y) / z2
+        dr_dq = (focal_length[0] * gx0 * dxdq
+                 + focal_length[1] * gy0 * dydq)
+    w = _resolve_weights(weight_kind, residuals, wmap, mask, dr_dq)
+    return _normal_sums(Jt, Jt_upper, upper_rows, w, residuals, mask)
 
 
 def _estimate_level_ic(camera_model0, camera_model1, I0, D0, I1, weight_map,
@@ -192,37 +319,51 @@ def _estimate_level_ic(camera_model0, camera_model1, I0, D0, I1, weight_map,
         p0x, p0y, p0z = _template_points(camera_model0, D0, grid)
         GX0, GY0 = np_gradient_2d(I0)
         gx0, gy0 = GX0.ravel(), GY0.ravel()
-        i0 = I0.ravel()
-        wmap = weight_map.ravel()
         focal_length = camera_model0.camera_parameters.focal_length
         Jt = torch.stack(calc_jacobian_cols(
             focal_length, gx0, gy0, p0x, p0y, torch.clamp(p0z, min=1e-6)))
         upper_cols, upper_rows = _upper_index(device)
-        Jt_upper = Jt[upper_cols]
-
-    def iteration(R, t):
-        p1x, p1y, p1z, us1x, us1y, mask = _warp_points(
-            R, t, p0x, p0y, p0z, camera_model1, I1.shape)
-        i1 = interpolate(I1, torch.stack([us1x, us1y], dim=-1))
-        residuals = torch.where(mask, i1 - i0, 0.0)   # IC sign convention
-        dr_dq = None
-        if weight_kind == "depth-var":
-            # d(residual)/d(inverse depth): the template gradient dotted
-            # with the warp's depth derivative
-            z2 = p1z * p1z + 1e-12
-            dxdq = p0z * (t[0] * p1z - t[2] * p1x) / z2
-            dydq = p0z * (t[1] * p1z - t[2] * p1y) / z2
-            dr_dq = (focal_length[0] * gx0 * dxdq
-                     + focal_length[1] * gy0 * dydq)
-        w = _resolve_weights(weight_kind, residuals, wmap, mask, dr_dq)
-        return _normal_equations(Jt, Jt_upper, upper_rows, w, residuals,
-                                 mask)
+        inputs = dict(camera_model1=camera_model1, p0x=p0x, p0y=p0y,
+                      p0z=p0z, i0=I0.ravel(), I1=I1, wmap=weight_map.ravel(),
+                      Jt=Jt, Jt_upper=Jt[upper_cols], upper_rows=upper_rows,
+                      gx0=gx0, gy0=gy0, focal_length=focal_length)
+        iteration = _level_iteration(partial(_ic_sums, weight_kind), inputs,
+                                     "ic", weight_kind, R10.dtype)
 
     def compose(R, t, xi):
         dpose = Pose.from_se3(xi).inv()
         return R @ dpose.R, (R @ dpose.t) + t
 
     return _gauss_newton(R10, t10, max_iter, device, iteration, compose)
+
+
+def _fc_sums(weight_kind, R, t, camera_model1, p0x, p0y, p0z, i0, I1, wmap,
+             GX1, GY1, upper_cols, upper_rows):
+    """The forward-compositional iteration body: I1 and its gradients
+    sampled at the warped points and the Jacobian recomputed there; the
+    normal-equation sums at (R, t)."""
+    focal_length = camera_model1.camera_parameters.focal_length
+    p1x, p1y, p1z, us1x, us1y, mask = _warp_points(
+        R, t, p0x, p0y, p0z, camera_model1, I1.shape)
+    us1 = torch.stack([us1x, us1y], dim=-1)
+    i1 = interpolate(I1, us1)
+    gx1 = interpolate(GX1, us1)
+    gy1 = interpolate(GY1, us1)
+    # r = I0(u0) - I1(warp(u0)), recomputed at every iteration
+    residuals = torch.where(mask, i0 - i1, 0.0)
+    # masked lanes get z = 1, keeping J finite
+    p1z_safe = torch.where(mask, p1z, 1.0)
+    Jt = torch.stack(calc_jacobian_cols(focal_length, gx1, gy1, p1x, p1y,
+                                        p1z_safe))
+    dr_dq = None
+    if weight_kind == "depth-var":
+        z2 = p1z_safe * p1z_safe
+        dxdq = p0z * (t[0] * p1z_safe - t[2] * p1x) / z2
+        dydq = p0z * (t[1] * p1z_safe - t[2] * p1y) / z2
+        dr_dq = (focal_length[0] * gx1 * dxdq
+                 + focal_length[1] * gy1 * dydq)
+    w = _resolve_weights(weight_kind, residuals, wmap, mask, dr_dq)
+    return _normal_sums(Jt, Jt[upper_cols], upper_rows, w, residuals, mask)
 
 
 def _estimate_level(camera_model0, camera_model1, I0, D0, I1, weight_map,
@@ -234,34 +375,12 @@ def _estimate_level(camera_model0, camera_model1, I0, D0, I1, weight_map,
     device = I0.device
     p0x, p0y, p0z = _template_points(camera_model0, D0, grid)
     GX1, GY1 = np_gradient_2d(I1)
-    i0 = I0.ravel()
-    wmap = weight_map.ravel()
-    focal_length = camera_model1.camera_parameters.focal_length
     upper_cols, upper_rows = _upper_index(device)
-
-    def iteration(R, t):
-        p1x, p1y, p1z, us1x, us1y, mask = _warp_points(
-            R, t, p0x, p0y, p0z, camera_model1, I1.shape)
-        us1 = torch.stack([us1x, us1y], dim=-1)
-        i1 = interpolate(I1, us1)
-        gx1 = interpolate(GX1, us1)
-        gy1 = interpolate(GY1, us1)
-        # r = I0(u0) - I1(warp(u0)), recomputed at every iteration
-        residuals = torch.where(mask, i0 - i1, 0.0)
-        # masked lanes get z = 1, keeping J finite
-        p1z_safe = torch.where(mask, p1z, 1.0)
-        Jt = torch.stack(calc_jacobian_cols(focal_length, gx1, gy1, p1x,
-                                            p1y, p1z_safe))
-        dr_dq = None
-        if weight_kind == "depth-var":
-            z2 = p1z_safe * p1z_safe
-            dxdq = p0z * (t[0] * p1z_safe - t[2] * p1x) / z2
-            dydq = p0z * (t[1] * p1z_safe - t[2] * p1y) / z2
-            dr_dq = (focal_length[0] * gx1 * dxdq
-                     + focal_length[1] * gy1 * dydq)
-        w = _resolve_weights(weight_kind, residuals, wmap, mask, dr_dq)
-        return _normal_equations(Jt, Jt[upper_cols], upper_rows, w,
-                                 residuals, mask)
+    inputs = dict(camera_model1=camera_model1, p0x=p0x, p0y=p0y, p0z=p0z,
+                  i0=I0.ravel(), I1=I1, wmap=weight_map.ravel(), GX1=GX1,
+                  GY1=GY1, upper_cols=upper_cols, upper_rows=upper_rows)
+    iteration = _level_iteration(partial(_fc_sums, weight_kind), inputs,
+                                 "fc", weight_kind, R10.dtype)
 
     def compose(R, t, xi):
         dpose = Pose.from_se3(xi)

@@ -26,10 +26,12 @@ from tadataka_tpu.vo.dvo import (
     _estimate_level as jlevel_fc,
     _resize_image as jresize_image, normalized_grids as jnormalized_grids)
 
+import tadataka_torch.vo.dvo as dvo
 from tadataka_torch import interop
 from tadataka_torch.camera import CameraModel, resize
 from tadataka_torch.core.pose import Pose
 from tadataka_torch.metrics import PhotometricError
+from tadataka_torch.utils.timing import trace
 from tadataka_torch.vo.dvo import (
     PoseChangeEstimator, estimate_pose_pyramid, _estimate_level,
     _estimate_level_ic, pyramid_shape, resize_image)
@@ -137,11 +139,11 @@ def test_unported_options_raise(pair):
         estimate_pose_pyramid(*args, "cauchy", "ic")
 
 
-def test_five_levels_at_the_slice_geometry():
-    """The slice's pyramid depth (5 levels) at a quarter of its size
-    (120x160, focal 120), on a step of its trajectory (rotvec (0, 0.006,
-    0), t (0.06, 0.006, 0.03)): the port's pose within 5e-4 of the JAX
-    pose, as for the 4-level pyramid above."""
+@pytest.fixture(scope="module")
+def slice_pair():
+    """The slice's geometry at a quarter of its size (120x160, focal
+    120), on a step of its trajectory (rotvec (0, 0.006, 0), t (0.06,
+    0.006, 0.03)), depth with 3% noise and a per-pixel weight map."""
     shape, focal = (120, 160), (120.0, 120.0)
     poses = [JPose.identity(),
              JPose.from_rotvec(jnp.float32([0.0, 0.006, 0.0]),
@@ -153,15 +155,67 @@ def test_five_levels_at_the_slice_geometry():
     D0 = (np.asarray(f0.depth_map)
           * gen.uniform(0.97, 1.03, shape)).astype(np.float32)
     weights = (1.0 / gen.uniform(0.01, 1.0, shape)).astype(np.float32)
-    I0, I1 = np.asarray(f0.image), np.asarray(f1.image)
+    return (f0.camera_model, np.asarray(f0.image), D0,
+            np.asarray(f1.image), weights)
+
+
+def test_five_levels_at_the_slice_geometry(slice_pair):
+    """The slice's pyramid depth (5 levels) at a quarter of its size
+    (``slice_pair``): the port's pose within 5e-4 of the JAX pose, as
+    for the 4-level pyramid above."""
+    jcm, I0, D0, I1, weights = slice_pair
     eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
-    jR, jt = jestimate(f0.camera_model, f0.camera_model, I0, D0, I1, weights,
+    jR, jt = jestimate(jcm, jcm, I0, D0, I1, weights,
                        eye, zero, 5, 20, 1.5, "map", "ic", 0)
-    cm = port_cm(f0.camera_model)
+    cm = port_cm(jcm)
     R, tr = estimate_pose_pyramid(cm, cm, t(I0), t(D0), t(I1), t(weights),
                                   t(eye), t(zero), 5, 20, 1.5, "map", "ic")
     np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=5e-4)
     np.testing.assert_allclose(tr.numpy(), np.asarray(jt), atol=5e-4)
+
+
+@pytest.mark.parametrize("method", ["ic", "fc"])
+@pytest.mark.parametrize("weight_kind", ["map", "huber", "none"])
+def test_pyramid_matches_its_frozen_copy(slice_pair, monkeypatch, method,
+                                         weight_kind):
+    """The port's pyramid, its iteration split into the device sums and
+    their host half, against the benchmark's frozen plain copy of it
+    (``bench_port/reference/port``, which imports nothing of the port),
+    each with its own package's camera model from the same parameters:
+    the same bits, the same iterations, and ``_normal_equations`` called
+    once an iteration, as the benchmark's counter reads it."""
+    import bench_port.reference.port.vo.dvo as frozen
+    from bench_port.reference.port.camera import (
+        CameraModel as FrozenCameraModel,
+        CameraParameters as FrozenCameraParameters)
+    jcm, I0, D0, I1, weights = slice_pair
+    p = jcm.camera_parameters
+    calls = {}
+
+    def counted(module, name):
+        real = module._normal_equations
+
+        def wrapper(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*args)
+        monkeypatch.setattr(module, "_normal_equations", wrapper)
+
+    counted(dvo, "port")
+    counted(frozen, "frozen")
+    args = [torch.from_numpy(np.array(x)) for x in (I0, D0, I1, weights)]
+    eye, zero = torch.eye(3), torch.zeros(3)
+    fcm = FrozenCameraModel.create(FrozenCameraParameters.create(
+        np.array(p.focal_length), np.array(p.offset)))
+    fR, ft = frozen.estimate_pose_pyramid(fcm, fcm, *args, eye, zero, 5, 20,
+                                          1.5, weight_kind, method)
+    cm = port_cm(jcm)
+    with trace() as t:
+        R, tr = estimate_pose_pyramid(cm, cm, *args, eye, zero, 5, 20, 1.5,
+                                      weight_kind, method)
+    assert torch.equal(R, fR) and torch.equal(tr, ft)
+    iters = t.counts["dvo.gn_iter"][None]
+    assert calls == {"port": iters, "frozen": iters}
+    assert iters > 2 * 5
 
 
 # ------------------------------------------------ PoseChangeEstimator
