@@ -6,17 +6,28 @@ the camera's driver delivers it (a host array), and timed until its
 camera pose is in host memory; the next frame follows at once.  The
 window opens after the app's warm-up frames (its ``warm_frames``: the
 bootstrap, the history filled and a few frames at full size, so every
-shape the window runs has run), runs frames until ``seconds`` have passed, and closes with
-a full synchronization after the last frame it started.  A frame whose
-``estimate`` raises, or whose pose or maps hold a non-finite value
-(reduced on the device and read once, when the window has closed),
-has failed.
+shape the window runs has run), runs frames until ``seconds`` have
+passed, and closes with a full synchronization after the last frame it
+started.  A frame whose ``estimate`` raises, or whose pose or maps hold
+a non-finite value (reduced on the device and read once, when the
+window has closed), has failed.
+
+A traced run (``--trace 1``) reads the window on stretches of frames of
+their own, so that no reading disturbs another: the profiler
+(``PROFILED``, with the harness's synchronized spans and the program's
+spans as its annotations), host-sync counting (``SYNC_COUNTED``) and the
+program's own trace (``PROGRAM_TRACED``: ``tadataka_torch``'s
+``utils/timing.trace()``, with neither the harness's spans, nor the
+profiler, nor sync counting, so the program's self times are the
+host's alone).  The harness's spans time the other frames.  An
+untraced run opens none of them.
 """
 
 import json
 import subprocess
 import sys
 import time
+from contextlib import ExitStack
 
 import numpy as np
 import torch
@@ -30,6 +41,7 @@ CHECK_FRAMES = 12        # window frames sampled for the check
 START_FRAMES = 3         # the first frames, always checked
 PROFILED = (2, 5)        # window frames 2..6 are profiled in a traced run
 SYNC_COUNTED = (8, 5)    # window frames 8..12 count host syncs (traced)
+PROGRAM_TRACED = (14, 10)  # window frames 14..23 run in the program's trace
 
 
 def loaded_forbidden():
@@ -81,6 +93,18 @@ class Reservoir:
             out, self.kept[j] = self.kept[j], frame
             return True, out
         return False, None
+
+
+def within(stretch, w):
+    """Whether window frame ``w`` lies in ``stretch`` (first, count)."""
+    return stretch[0] <= w < stretch[0] + stretch[1]
+
+
+def program_trace():
+    """The program's own trace block (``tadataka_torch.utils.timing``),
+    imported only where a traced run opens it."""
+    from tadataka_torch.utils import timing
+    return timing.trace()
 
 
 def log(err, message):
@@ -161,44 +185,64 @@ def _run(bench, entry, config, loop, system, rec, seed, seconds,
     sample = Reservoir(seed, CHECK_FRAMES)
     ms, finites, errors = [], [], []
     prof = None
+    # the program's trace: on its own frames (kept), and under the
+    # profiler (its spans become the profiler's annotations)
+    program, annotated = ExitStack(), ExitStack()
+    program_block, program_frames = None, 0
     t_open = time.perf_counter()
     setup_s = t_open - t_start
     marks.append(("warm-up", t_open))
     k = n_warm
-    while time.perf_counter() - t_open < seconds:
-        w = k - n_warm
-        if trace and device.type == "cuda" and w == PROFILED[0]:
-            prof = _start_profiler()
-            rec.keep_calls = True
-        rec.count_syncs = trace and (
-            SYNC_COUNTED[0] <= w < SYNC_COUNTED[0] + SYNC_COUNTED[1])
-        capture, displaced = sample.offer(k)
-        if displaced is not None:
-            rec.drop(displaced)
-        if prof is not None and rec.keep_calls:
-            with torch.profiler.record_function("frame"):
+    try:
+        while time.perf_counter() - t_open < seconds:
+            w = k - n_warm
+            if trace and device.type == "cuda" and w == PROFILED[0]:
+                prof = _start_profiler()
+                rec.keep_calls = True
+                annotated.enter_context(program_trace())
+            in_program = trace and within(PROGRAM_TRACED, w)
+            if in_program and program_block is None:
+                program_block = program.enter_context(program_trace())
+            rec.spans_on = not in_program
+            rec.count_syncs = trace and within(SYNC_COUNTED, w)
+            capture, displaced = sample.offer(k)
+            if displaced is not None:
+                rec.drop(displaced)
+            if prof is not None and rec.keep_calls:
+                with torch.profiler.record_function("frame"):
+                    took, finite, raised = _step(system, rec, loop, k,
+                                                 capture)
+                    rec.sync()
+            else:
                 took, finite, raised = _step(system, rec, loop, k, capture)
+            if prof is not None and rec.keep_calls and \
+                    w == PROFILED[0] + PROFILED[1] - 1:
                 rec.sync()
-        else:
-            took, finite, raised = _step(system, rec, loop, k, capture)
-        if prof is not None and rec.keep_calls and \
-                w == PROFILED[0] + PROFILED[1] - 1:
-            rec.sync()
-            prof.stop()
-            rec.keep_calls = False
-        ms.append(took)
-        if raised is not None:
-            errors.append((k, raised))
-            if capture:
-                rec.drop(k)
-        else:
-            finites.append(finite)
-        k += 1
-    rec.count_syncs = False
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    t_close = time.perf_counter()
-    if prof is not None and rec.keep_calls:      # the window ended first
+                annotated.close()
+                prof.stop()
+                rec.keep_calls = False
+            if in_program:
+                program_frames += 1
+                if w == PROGRAM_TRACED[0] + PROGRAM_TRACED[1] - 1:
+                    program.close()
+            ms.append(took)
+            if raised is not None:
+                errors.append((k, raised))
+                if capture:
+                    rec.drop(k)
+            else:
+                finites.append(finite)
+            k += 1
+        rec.count_syncs = False
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_close = time.perf_counter()
+    finally:
+        # where the window ended inside a stretch
+        program.close()
+        annotated.close()
+        rec.spans_on = True
+    if prof is not None and rec.keep_calls:
         prof.stop()
         rec.keep_calls = False
 
@@ -241,7 +285,8 @@ def _run(bench, entry, config, loop, system, rec, seed, seconds,
         from bench_port.harness import trace as trace_mod
         events = None if prof is None else trace_mod.trace_events(prof)
         record = trace_mod.TraceRecord(rec, events, n_warm, attempted,
-                                       PROFILED)
+                                       PROFILED, program_block,
+                                       program_frames)
         del events
         for line in record.lines():
             log(err, line)

@@ -7,8 +7,10 @@ and keep the inputs and outputs of the frames sampled for the check
 Spans and host-sync counts exist only in a traced run: a span
 synchronizes the device at both ends, and host syncs are counted, on a
 few frames of their own (counting slows the host), by
-``torch.cuda.set_sync_debug_mode("warn")`` while the program runs, with the harness's own synchronizations left
-out.  Captures hold
+``torch.cuda.set_sync_debug_mode("warn")`` while the program runs, with
+the harness's own synchronizations left out.  ``spans_on`` turns the
+spans off on frames where the program's own trace reads the host's
+times, which a synchronization would move.  Captures hold
 references to the program's tensors, never copies, and exist in every
 run, since every run is checked."""
 
@@ -43,6 +45,7 @@ class Recorder:
         self.frame = None         # index of the frame in flight
         self.capturing = False    # the frame in flight is sampled
         self.keep_calls = False   # keep wrapped calls' inputs (profiled frames)
+        self.spans_on = True      # time the spans (traced runs)
         self.count_syncs = False  # count the program's host syncs
         self.spans = {}           # name -> [(frame, seconds)]
         self.counts = {}          # name -> {frame: calls}
@@ -67,7 +70,8 @@ class Recorder:
                 per[frame] = per.get(frame, 0) + 1
             if calls and recorder.keep_calls:
                 recorder.calls.setdefault(name, []).append((frame, args))
-            if span and recorder.trace and frame is not None:
+            if span and recorder.trace and recorder.spans_on and \
+                    frame is not None:
                 with recorder.span(name):
                     out = real(*args, **kwargs)
             else:

@@ -13,10 +13,16 @@ No two frames of a period share a pose.  ``--seed`` sets the frame the
 replay starts at (one of the first half of the out leg, so the
 bootstrap pair always has a leg step's baseline); every seed replays
 the same period of frames, in another order.  The texture's phase is
-the mix's, the same for every seed.
+the mix's, the same for every seed, and applies to either texture.
 
-The renderer is a frozen copy of the port's ``render_plane_scene`` and
-``default_texture`` (``tadataka_torch/dataset/synthetic.py``); rays
+A configuration may name its scene's ``texture``: ``"default"`` (or no
+key) for the smooth texture of the TUM cells, ``"sharp"`` for the
+high-frequency one that FAST finds corners on through a narrow field of
+view (the port's EuRoC export's).
+
+The renderer is a frozen copy of the port's ``render_plane_scene``,
+``default_texture`` and ``_sharp_texture``
+(``tadataka_torch/dataset/synthetic.py``); rays
 come from the reference's camera model, so a RadTan camera renders the
 distorted image the sensor delivers.  Images leave as the camera's
 driver hands them over: uint8 RGB (H, W, 3) host arrays, and for an
@@ -119,6 +125,28 @@ def default_texture(X, Y):
     return 0.5 + 0.25 * v
 
 
+def sharp_texture(X, Y):
+    """High-frequency texture: corners at the pixel scale of a narrow
+    field of view."""
+    v = (torch.sin(9.0 * X) * torch.cos(11.0 * Y)
+         + 0.6 * torch.sin(23.0 * X + 0.7) * torch.sin(19.0 * Y + 1.1)
+         + 0.4 * torch.cos(41.0 * X - 1.9) * torch.cos(37.0 * Y + 0.3)
+         + 0.3 * torch.sin(83.0 * X + 2.7) * torch.cos(71.0 * Y - 0.8))
+    return 0.5 + 0.2 * v
+
+
+TEXTURES = {"default": default_texture, "sharp": sharp_texture}
+
+
+def texture_of(config):
+    """The configuration's texture: its ``texture`` key, "default" where
+    it has none."""
+    name = config.get("texture", "default")
+    if name not in TEXTURES:
+        raise KeyError(f"texture {name!r} is none of {sorted(TEXTURES)}")
+    return TEXTURES[name]
+
+
 def camera_model(config, device="cpu"):
     """The configuration's camera as the reference's CameraModel."""
     c = config["camera"]
@@ -141,10 +169,10 @@ def pixel_rays(cm, shape, device):
     return torch.cat([xs, torch.ones_like(xs[:, :1])], dim=-1)
 
 
-def render(rays, pose_wc, shape, planes, phase):
+def render(rays, pose_wc, shape, planes, phase, texture=default_texture):
     """(image, depth) of the planes seen along ``rays`` from ``pose_wc``
     (camera -> world): each pixel takes the nearest positive
-    intersection and the texture there, shifted by ``phase``."""
+    intersection and ``texture`` there, shifted by ``phase``."""
     H, W = shape
     device = rays.device
     f32 = torch.float32
@@ -165,8 +193,8 @@ def render(rays, pose_wc, shape, planes, phase):
         best_s = torch.where(closer, s, best_s)
         best_xy = torch.where(closer[:, None], X_w[:, :2] + 3.1 * k, best_xy)
     best_s = torch.where(torch.isinf(best_s), 100.0, best_s)
-    image = default_texture(best_xy[:, 0] + phase[0],
-                            best_xy[:, 1] + phase[1]).reshape(H, W)
+    image = texture(best_xy[:, 0] + phase[0],
+                    best_xy[:, 1] + phase[1]).reshape(H, W)
     return image, best_s.reshape(H, W)
 
 
@@ -185,6 +213,7 @@ def make_loop(config, mix, seed, device):
     cm = camera_model(config, device)
     rays = pixel_rays(cm, shape, device)
     planes = [tuple(map(tuple, p)) for p in config["planes"]]
+    texture = texture_of(config)
     factor = config.get("depth_factor")
     frames = []
     for T in loop_poses(mix):
@@ -192,7 +221,7 @@ def make_loop(config, mix, seed, device):
                                     device=device),
                     torch.as_tensor(T[:3, 3], dtype=torch.float32,
                                     device=device))
-        image, depth = render(rays, pose, shape, planes, phase)
+        image, depth = render(rays, pose, shape, planes, phase, texture)
         u8 = torch.clamp(image * 255.0, 0, 255).to(torch.uint8)
         rgb = u8[:, :, None].expand(*shape, 3).contiguous().cpu().numpy()
         depth_map = None
