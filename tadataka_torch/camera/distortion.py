@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from tadataka_torch.core.rounding import as_divisor, atan, sqrt, tan
+from tadataka_torch.utils.timing import sync_point
 
 _R_EPS = 1e-8
 # iterations of the Newton undistort between two host reads of "all
@@ -171,8 +172,11 @@ class RadTan(NamedTuple):
         pu, pv = u, v
         active = torch.ones(u.shape, dtype=torch.bool, device=u.device)
         for i in range(max_iter):
-            if i % _CONVERGENCE_CHECK == 0 and not bool(active.any()):
-                break
+            if i % _CONVERGENCE_CHECK == 0:
+                with sync_point("sync.distortion.converged"):
+                    done = not bool(active.any())
+                if done:
+                    break
             su, sv = self._newton_step(u, v, pu, pv)
             pu = torch.where(active, pu + su, pu)
             pv = torch.where(active, pv + sv, pv)

@@ -22,6 +22,7 @@ import torch
 
 from tadataka_torch.core.gradients import grad_x, grad_y
 from tadataka_torch.core.rounding import as_divisor
+from tadataka_torch.utils.timing import sync_point
 
 
 def compute_curvature(fx, fy, fxx, fxy, fyx, fyy):
@@ -47,7 +48,9 @@ def percentile_of(x, p):
     low_weight = 1.0 - high_weight
     lo = low.long().clamp(0, s.numel() - 1)
     hi = torch.ceil(q).long().clamp(0, s.numel() - 1)
-    return s[lo] * low_weight + s[hi] * high_weight
+    # a 0-d index tensor is read to the host, once for each side
+    with sync_point("sync.curvature.percentile", 2):
+        return s[lo] * low_weight + s[hi] * high_weight
 
 
 def extract_curvature_extrema(image, percentile=95.0, max_keypoints=1024):

@@ -169,6 +169,7 @@ def solve_pnp_ransac(points, keypoints, mask, rng,
 
     err = _reprojection_errors(R, t, points, keypoints)
     inliers = mask & (err < reprojection_threshold)
+    probe(f"RANSAC {site}", inliers=inliers)
     with stage("Gauss-Newton", points.device):
         R, t = _refine_gauss_newton(R, t, points, keypoints,
                                     inliers.to(points.dtype), GN_ITERATIONS)

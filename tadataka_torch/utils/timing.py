@@ -41,6 +41,9 @@ entry::
 
     with capture() as values:
         vo.estimate(frame)
+
+``capture(stages=(...))`` keeps only the named stages' values; the
+other probes copy nothing.
 """
 
 import time
@@ -51,6 +54,7 @@ import torch
 
 _trace = None    # the open trace() or record() block (a Trace)
 _values = None   # the open capture() block's list
+_stages = None   # the stages it keeps (None: all)
 
 
 
@@ -216,20 +220,21 @@ def record():
 
 
 @contextmanager
-def capture():
+def capture(stages=None):
     """A list of (stage, name, value) of the values probed inside the
-    block."""
-    global _values
-    _values = []
+    block; ``stages``: keep only those stages' (the others' probes then
+    copy nothing)."""
+    global _values, _stages
+    _values, _stages = [], stages
     try:
         yield _values
     finally:
-        _values = None
+        _values = _stages = None
 
 
 def probe(stage, **values):
     """Inside a ``capture()`` block, append each value's host copy."""
-    if _values is None:
+    if _values is None or (_stages is not None and stage not in _stages):
         return
     for name, value in values.items():
         if isinstance(value, torch.Tensor):

@@ -21,6 +21,16 @@ matches (one read), the tracked keypoints with the new area's extrema
 run on the host, ``core/solvers.py``) and the triangulated tracks (one
 read).  Every stage gives the same bits on the CPU and the card.
 
+Marks for ``utils/timing.py``: the root span ``ve.estimate`` (it carries
+the frame), the stages above, a ``sync.ve.<site>`` span and count at
+each of those reads (``extrema``, ``matches``, ``tracks``, ``pose``,
+``triangulate``) and the counters ``ve.tracked`` (tracks carried into
+the frame), ``ve.spawned`` (keypoints of the new area), ``ve.pnp_points``
+(mapped tracks handed to PnP) and ``ve.triangulated`` (points written).
+Probes (``capture()``): the affine flow (``flow``: ``matrix``), beside
+the RANSACs' own (``RANSAC pose_change`` and ``essential`` on frame 1,
+``RANSAC pnp`` after).
+
 Randomness: ``rng``, a ``torch.Generator`` (by default one seeded with
 3939 on the device, as the JAX package draws from ``PRNGKey(3939)``
 where ``_bootstrap`` and ``_localize`` pass no key) or a callable
@@ -51,7 +61,8 @@ from tadataka_torch.pose_estimation.epipolar import estimate_pose_change
 from tadataka_torch.pose_estimation.pnp import solve_pnp_packed
 from tadataka_torch.utils.exceptions import (
     NotEnoughInliersException, print_error)
-from tadataka_torch.utils.timing import stage
+from tadataka_torch.utils.timing import (
+    count, probe, span, stage, sync_point)
 
 
 class KeypointFrame(NamedTuple):
@@ -70,7 +81,9 @@ def init_keypoint_frame(image, percentile=98.0, max_keypoints=2048):
     """The curvature extrema of ``image`` (a tensor) with ids from 0."""
     kps, mask = extract_curvature_extrema(image, percentile=percentile,
                                           max_keypoints=max_keypoints)
-    packed = torch.cat([kps, mask[:, None].to(kps.dtype)], 1).cpu().numpy()
+    packed = torch.cat([kps, mask[:, None].to(kps.dtype)], 1)
+    with sync_point("sync.ve.extrema"):
+        packed = packed.cpu().numpy()
     return create_keypoint_frame(0, packed[packed[:, 2] > 0, :2])
 
 
@@ -79,7 +92,8 @@ def estimate_flow(features0, features1, matcher=None):
     matches (one host read: the kept matches)."""
     matcher = matcher or Matcher()
     matches = matcher(features0, features1)
-    idx = matches.indices[matches.mask]
+    with sync_point("sync.ve.matches"):
+        idx = matches.indices[matches.mask]
     return estimate_affine_transform(features0.keypoints[idx[:, 0]],
                                      features1.keypoints[idx[:, 1]])
 
@@ -125,13 +139,16 @@ class Tracker:
         n = len(corrected)
         packed = torch.cat([
             torch.cat([corrected, in_range[:, None].to(corrected.dtype)], 1),
-            torch.cat([new_kps, keep[:, None].to(new_kps.dtype)], 1)]
-        ).cpu().numpy()
+            torch.cat([new_kps, keep[:, None].to(new_kps.dtype)], 1)])
+        with sync_point("sync.ve.tracks"):
+            packed = packed.cpu().numpy()
         tracked, new = packed[:n], packed[n:]
         in_range = tracked[:, 2] > 0
         new_kps = new[new[:, 2] > 0, :2]
 
         ids1 = keypoints0.ids[in_range]
+        count("ve.tracked", len(ids1))
+        count("ve.spawned", len(new_kps))
         next_id = (keypoints0.ids[-1] + 1) if len(keypoints0.ids) else 0
         new_ids = np.arange(next_id, next_id + len(new_kps), dtype=np.int64)
         return KeypointFrame(np.concatenate([ids1, new_ids]),
@@ -220,6 +237,24 @@ class VitaminEVO:
         self._first_obs = {}      # track id -> (frame_idx, (2,) pixel xy)
         self._tri_gap = {}        # track id -> frame gap used to triangulate
 
+    @property
+    def last_features(self):
+        """The FAST/BRIEF ``Features`` of the latest frame, which the next
+        frame's flow matches against."""
+        return self._features
+
+    @property
+    def first_observations(self):
+        """Track id -> (frame index, (2,) pixel xy) of its first
+        sighting, the view each track is triangulated against."""
+        return self._first_obs
+
+    @property
+    def triangulation_gaps(self):
+        """Mapped track id -> the frame gap its point was triangulated
+        over."""
+        return self._tri_gap
+
     def _normalize(self, coords):
         """Normalized coordinates of host pixel coords, on the device."""
         return self.camera_model.normalize(upload(
@@ -256,17 +291,25 @@ class VitaminEVO:
             self._normalize(np.stack([xy for _, xy in first])),
             self._normalize(kp.coords[sel]))
         ok = compute_depth_mask(depths) & torch.isfinite(points).all(dim=1)
-        packed = torch.cat([points, ok[:, None].to(points.dtype)],
-                           1).cpu().numpy()
+        packed = torch.cat([points, ok[:, None].to(points.dtype)], 1)
+        with sync_point("sync.ve.triangulate"):
+            packed = packed.cpu().numpy()
+        written = 0
         for i, (j, _), row in zip(sel, first, packed):
             if row[3] > 0:
                 tid = kp.ids[i]
                 self.points[tid] = row[:3]
                 self._tri_gap[tid] = frame_idx - j
+                written += 1
+        count("ve.triangulated", written)
 
     def estimate(self, image):
         """Process a frame (grayscale or RGB, host array or tensor);
         returns the camera -> world Pose, or None if tracking failed."""
+        with span("ve.estimate", frame=len(self.poses_cw)):
+            return self._estimate(image)
+
+    def _estimate(self, image):
         if isinstance(image, torch.Tensor):
             image = image.detach().cpu().numpy()
         image = np.asarray(image)
@@ -291,6 +334,7 @@ class VitaminEVO:
         k = len(self.poses_cw)
         with stage("flow", self.device):
             flow01 = estimate_flow(self._features, feats, self.matcher)
+        probe("flow", matrix=flow01.matrix)
         kp1 = Tracker(flow01, image, self.lambda_)(self.keypoints[-1])
 
         with stage("pose", self.device):
@@ -318,8 +362,10 @@ class VitaminEVO:
         # world->cam1 directly: frame 0 is the world origin
         pose = estimate_pose_change(self._normalize(xy0),
                                     self._normalize(xy1), rng=self.rng)
-        return _pose_from_flat(torch.cat([pose.R.reshape(-1),
-                                          pose.t]).cpu().numpy())
+        flat = torch.cat([pose.R.reshape(-1), pose.t])
+        with sync_point("sync.ve.pose"):
+            flat = flat.cpu().numpy()
+        return _pose_from_flat(flat)
 
     def _localize(self, kp1):
         sel = [i for i, tid in enumerate(kp1.ids) if tid in self.points]
@@ -327,12 +373,15 @@ class VitaminEVO:
             return None
         pts = np.stack([self.points[kp1.ids[i]] for i in sel]).astype(
             np.float32)
+        count("ve.pnp_points", len(sel))
         try:
             packed = solve_pnp_packed(
                 upload(pts, self.device),
                 self._normalize(kp1.coords[sel]), np.ones(len(sel), bool),
                 rng=self.rng, reprojection_threshold=self.pnp_threshold,
-                device=self.device).cpu().numpy()
+                device=self.device)
+            with sync_point("sync.ve.pose"):
+                packed = packed.cpu().numpy()
             if packed[12] < 1.0:
                 raise NotEnoughInliersException("No inliers found")
         except NotEnoughInliersException as e:

@@ -5,11 +5,13 @@ syncs by call site counted as the code runs them, the same bits with
 the block open and closed, and each span mirrored as a profiler
 annotation."""
 
+import contextlib
 import itertools
 import json
 import time
 import tracemalloc
 
+import numpy as np
 import pytest
 import torch
 
@@ -276,3 +278,124 @@ def test_profile_trace_exports_the_programs_spans(tmp_path):
     assert names.count("dvo.estimate") == 3
     assert names.count("dvo.level") == 2 * N_LEVELS
     assert timing._trace is None
+
+
+def vitamin_e_scene(n_frames=3):
+    """VitaminEVO on a 3-frame 120x160 multi-plane scene: frame 0 the
+    extrema, frame 1 the bootstrap, frame 2 PnP."""
+    from tadataka_torch.dataset import multi_plane_scene
+    from tadataka_torch.vo.vitamin_e import VitaminEVO
+    poses = [Pose.from_rotvec(torch.tensor([0.0, 0.003 * i, 0.0]),
+                              torch.tensor([0.15 * i, 0.01 * i, 0.0]))
+             for i in range(n_frames)]
+    ds = multi_plane_scene(n_frames, (120, 160), (120.0, 120.0), poses)
+    vo = VitaminEVO(ds[0].camera_model, fast_threshold=0.02, patch_size=24,
+                    device="cpu")
+    return vo, [ds[i].image for i in range(n_frames)]
+
+
+def vitamin_e_run(traced):
+    """(the VO after its frames, each frame's pose, the map's ids after
+    each frame, the Trace or None)."""
+    vo, images = vitamin_e_scene()
+    poses, maps = [], []
+    with (trace() if traced else contextlib.nullcontext()) as t:
+        for im in images:
+            poses.append(vo.estimate(im))
+            maps.append(set(vo.points))
+    return vo, poses, maps, t
+
+
+@pytest.fixture(scope="module")
+def vitamin_e_traced():
+    return vitamin_e_run(traced=True)
+
+
+def test_vitamin_e_spans_syncs_and_counters(vitamin_e_traced):
+    """``ve.estimate`` roots each frame with its index, the stages and
+    every ``sync.ve.*`` site sit under it, and the four counters count
+    what the VO kept: tracks carried in and spawned make the frame's
+    keypoints, PnP reads the mapped tracks, the points written fill the
+    map."""
+    vo, poses, maps, t = vitamin_e_traced
+    assert all(p is not None for p in poses)
+    roots = [s for s in t.spans if s.name == "ve.estimate"]
+    assert [s.frame for s in roots] == [0, 1, 2]
+    assert all(s.parent is None for s in roots)
+    for i, s in enumerate(t.spans):
+        if s.name != "ve.estimate":
+            assert any(a.name == "ve.estimate" for a in ancestors(t.spans, i))
+
+    def frames_of(name):
+        return sorted({s.frame for s in t.spans if s.name == name})
+    assert frames_of("extract") == [0, 1, 2]
+    for name in ("flow", "curvature + climb", "new area", "pose",
+                 "triangulate"):
+        assert frames_of(name) == [1, 2], name
+    assert frames_of("Gauss-Newton") == [2]
+    c = t.counts
+    assert c["sync.ve.extrema"] == {0: 1}
+    for site in ("matches", "tracks", "pose", "triangulate"):
+        assert c[f"sync.ve.{site}"] == {1: 1, 2: 1}, site
+    # the curvature's percentile reads its two 0-d indices: the extrema
+    # of frame 0, the new area's of later frames
+    assert c["sync.curvature.percentile"] == {0: 2, 1: 2, 2: 2}
+    named = {s.name for s in t.spans if s.name.startswith("sync.")}
+    assert named == {n for n in c if n.startswith("sync.")}
+    for f in (1, 2):
+        assert c["ve.tracked"][f] + c["ve.spawned"][f] == \
+            len(vo.keypoints[f].ids)
+        assert c["ve.tracked"][f] == len(np.intersect1d(
+            vo.keypoints[f - 1].ids, vo.keypoints[f].ids))
+    assert set(c["ve.pnp_points"]) == {2}
+    assert c["ve.pnp_points"][2] == sum(tid in maps[1]
+                                        for tid in vo.keypoints[2].ids)
+    # frame 1 writes every point it maps; frame 2 rewrites the old ones
+    # and adds the tracks first seen on frame 1
+    assert c["ve.triangulated"][1] == len(maps[1])
+    assert maps[1] <= maps[2]
+    assert len(maps[2] - maps[1]) <= c["ve.triangulated"][2] <= \
+        len(vo.keypoints[2].ids)
+
+
+def test_vitamin_e_tracing_changes_no_bit(vitamin_e_traced):
+    vo, poses, _, _ = vitamin_e_traced
+    plain_vo, plain_poses, _, _ = vitamin_e_run(traced=False)
+    for a, b in zip(poses, plain_poses):
+        assert torch.equal(a.R, b.R) and torch.equal(a.t, b.t)
+    for a, b in zip(vo.keypoints, plain_vo.keypoints):
+        assert np.array_equal(a.ids, b.ids)
+        assert np.array_equal(a.coords, b.coords)
+    assert sorted(vo.points) == sorted(plain_vo.points)
+    assert all(np.array_equal(vo.points[i], plain_vo.points[i])
+               for i in vo.points)
+
+
+def test_vitamin_e_marks_are_no_ops_with_no_block_open(monkeypatch):
+    """With no block open no mark of the VO makes a span or counts."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a mark opened a span with no block open")
+    monkeypatch.setattr(timing, "_Open", refuse)
+    assert timing._trace is None
+    vo, images = vitamin_e_scene()
+    assert all(vo.estimate(im) is not None for im in images)
+
+
+def test_capture_keeps_only_the_named_stages():
+    """``capture(stages)`` keeps the named stages' probes, the same
+    values in the same order as an open capture, and no other."""
+    kept = ("flow", "RANSAC pnp")
+    runs = []
+    for stages in (None, kept):
+        vo, images = vitamin_e_scene()
+        with timing.capture(stages) as values:
+            for im in images:
+                vo.estimate(im)
+        runs.append(values)
+    every, named = runs
+    assert {stage for stage, _, _ in every} > set(kept)
+    assert {stage for stage, _, _ in named} == set(kept)
+    wanted = [v for v in every if v[0] in kept]
+    assert [(s, n) for s, n, _ in named] == [(s, n) for s, n, _ in wanted]
+    assert all(np.array_equal(a[2], b[2]) for a, b in zip(named, wanted))
+    assert timing._stages is None and timing._values is None
