@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
 all at once), checks each against its plain PyTorch version on the
 card (both designs of the SSD search, "ring" and "thread", bit for
-bit, each timed beside the bound at its inputs), drives the SSD probes'
+bit, each timed beside the bound at its inputs, and the PnP
+normal-equation kernel), drives the SSD probes'
 entry point (``tadataka_torch.probes.exp_ssd``) and the gather probes'
 (``tadataka_torch.probes.dynamic_gather`` and ``flat_gather``),
 compares the port on the CPU and on the card stage by stage and over a
@@ -83,6 +84,8 @@ GATHER_REPLACES = {
     "multi_warp": "benchmarks/test_dynamic_gather.py:80",
     "flat_take": "benchmarks/test_pallas_gather.py:51",
     "flat_take_rows": "benchmarks/test_pallas_gather.py:82"}
+PNP_SOURCE = "tadataka_torch/pose_estimation/csrc/pnp_normal.cu"
+PNP_REPLACES = "none (the JAX package leaves the PnP Gauss-Newton step to XLA)"
 # flat_take_rows' time in its first design (a block per 2048 columns,
 # eight index rows a thread; NVIDIA H100 80GB HBM3 at 700 W, PERF.md's
 # kernel table), printed beside its time now
@@ -156,6 +159,15 @@ def ssd_search_bytes_flops(S, H, W):
     mlo and mhi read, best and three errors written; its windows' float
     operations."""
     return (S + 11) * H * W * 4, (S - 4) * H * W * SSD_FLOPS_PER_WINDOW
+
+
+def pnp_normal_bytes_flops(B, n):
+    """What one PnP normal-equation step must move and compute: R, t,
+    points, keypoints and weights read, the (B, 6, 7) sums written; a
+    point's float operations: its transform (15), projection and two
+    residuals (8), the 12 Jacobian entries of its two rows (3 each), and
+    a row's 6 weightings, 42 products and 42 sums."""
+    return 4 * B * (12 + 6 * n + 42), B * n * (15 + 8 + 36 + 2 * 90)
 
 
 def trajectory(n, step=(0.02, 0.002, 0.01), yaw=0.002, device="cpu"):
@@ -286,13 +298,15 @@ def phase_build():
     """Build the kernel libraries at once, one nvcc for each source."""
     from concurrent.futures import ThreadPoolExecutor
     from tadataka_torch.probes.exp_ssd import probe_library
+    from tadataka_torch.pose_estimation.pnp import pnp_normal_library
     from tadataka_torch.probes.gather import gather_library
     from tadataka_torch.vo.semi_dense.sweep import ssd_library
     t0 = time.perf_counter()
-    sources = (SSD_SOURCE, PROBE_SOURCE, GATHER_SOURCE)
+    sources = (SSD_SOURCE, PROBE_SOURCE, GATHER_SOURCE, PNP_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(lambda build: build(),
-                              (ssd_library, probe_library, gather_library)))
+                              (ssd_library, probe_library, gather_library,
+                               pnp_normal_library)))
     for source, lib in zip(sources, built):
         log("build", f"{source} -> {lib.path.name} in {lib.seconds:.2f} s")
         for line in lib.log.splitlines():
@@ -431,6 +445,80 @@ def time_search(phase, name, args):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, **work)
 
 
+def pnp_normal_inputs(B, n, seed, nan_point=False):
+    """``pnp_normal``'s inputs on the card: B poses near the identity, n
+    points 4-6 m ahead, noisy keypoints, every seventh weight 0;
+    ``nan_point``: entry 0's point 1 at z + 1e-16 = 0."""
+    from tadataka_torch.core.so3 import exp_so3
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    R = exp_so3(0.05 * torch.randn((B, 3), generator=gen, device="cuda"))
+    t = 0.2 * torch.randn((B, 3), generator=gen, device="cuda")
+    X = 2 * torch.rand((B, n, 3), generator=gen, device="cuda") - 1
+    X[..., 2] += 5.0
+    kp = 0.2 * torch.randn((B, n, 2), generator=gen, device="cuda")
+    w = torch.rand((B, n), generator=gen, device="cuda")
+    w[:, ::7] = 0.0
+    if nan_point:
+        R[0], t[0] = torch.eye(3, device="cuda"), 0.0
+        X[0, 1] = torch.tensor([0.5, -0.25, -1e-16], device="cuda")
+    return R.contiguous(), t, X, kp, w
+
+
+def check_pnp_normal():
+    """The PnP normal-equation kernel bit-equal to its plain version (the
+    bit patterns, NaN and signed zeros included) at 1, 3, 2000, 2049
+    (just past a power of two of rows) and 5000 points and at P3P's
+    batch, NaN sums in two of the cases, then timed in turns with
+    the plain version at the VO's shape (B = 1, n = 2000) and P3P's (B =
+    512, n = 3) beside the bound.  Returns the VO shape's numbers."""
+    from tadataka_torch.probes.exp_ssd import cuda_times
+    from tadataka_torch.pose_estimation.pnp import (
+        pnp_normal, pnp_normal_reference)
+    for B, n, nan_point in ((1, 1, False), (1, 3, False), (1, 2000, False),
+                            (1, 2049, True), (1, 5000, False),
+                            (512, 3, True)):
+        args = pnp_normal_inputs(B, n, seed=B * 7919 + n,
+                                 nan_point=nan_point)
+        out, ref = pnp_normal(*args), pnp_normal_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"pnp_normal differs from its plain "
+                                 f"version at B={B}, n={n}")
+        log("kernel", f"pnp_normal B={B} n={n}: bit-equal to plain"
+            + (f" ({ref.isnan().sum().item()} NaN sums)" if nan_point
+               else ""))
+    results = {}
+    for B, n in ((1, 2000), (512, 3)):
+        args = pnp_normal_inputs(B, n, seed=n)
+        times = cuda_times({"kernel": lambda: pnp_normal(*args),
+                            "plain": lambda: pnp_normal_reference(*args)})
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        q1, _, q3 = statistics.quantiles(times["kernel"], n=4)
+        n_bytes, flops = pnp_normal_bytes_flops(B, n)
+        bound_ms, bound_by = bound(n_bytes, flops)
+        log("kernel", f"pnp_normal B={B} n={n}: kernel {ms['kernel']:.4f} "
+            f"ms (quartiles {q1:.4f}-{q3:.4f}), plain {ms['plain']:.4f} ms, "
+            f"timed in turns; bound {bound_ms:.6f} ms ({bound_by})")
+        results[(B, n)] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                               n_bytes=n_bytes, flops=flops)
+    return results[(1, 2000)]
+
+
+def pnp_kernel_launches(tr):
+    """The PnP normal-equation kernel's launches in a ``trace()`` block
+    of a VO's drive on the card, checked frame by frame: GN_ITERATIONS
+    for each "Gauss-Newton" span (one ``solve_pnp_ransac``'s
+    refinement), and some such span in the block."""
+    from collections import Counter
+    from tadataka_torch.pose_estimation.pnp import GN_ITERATIONS
+    refinements = Counter(s.frame for s in tr.spans
+                          if s.name == "Gauss-Newton")
+    launches = tr.counts.get("pnp.normal_kernel", {})
+    expected = {f: GN_ITERATIONS * k for f, k in refinements.items()}
+    assert refinements and launches == expected, (launches, expected)
+    return sum(launches.values())
+
+
 def phase_kernel_vs_plain():
     """Both designs of the SSD search bit-equal to the plain version on
     the same tensors, on random stacks up to the rect plan's 256 planes,
@@ -438,7 +526,8 @@ def phase_kernel_vs_plain():
     kernel) and on rect-shaped stacks, each timed beside the bound at its
     inputs; then on stacks whose window errors are NaN (``nan_inputs``,
     NaN in the same places; not timed); the ring kernel's SASS must hold
-    its bulk copies (UBLKCP)."""
+    its bulk copies (UBLKCP).  Last the PnP normal-equation kernel
+    (:func:`check_pnp_normal`), its numbers under "pnp_normal"."""
     from tadataka_torch.probes.ssd_ring import (
         nan_inputs, rect_inputs, ssd_inputs)
     from tadataka_torch.vo.semi_dense.sweep import ring_config, ssd_library
@@ -472,6 +561,7 @@ def phase_kernel_vs_plain():
     log("kernel", f"SASS of the ring kernel (consumers, planes a stage, "
         f"stages, blocks an SM: {ring_config(48, *VGA)['shape']}): {counts}")
     assert counts["UBLKCP"] > 0 and counts["UTMALDG"] > 0, counts
+    results["pnp_normal"] = check_pnp_normal()
     return results
 
 
@@ -2080,11 +2170,16 @@ def feature_stage_times(config, frames, device, repeats=5):
 
 def feature_run_on(config, frames, gt, smi, device="cuda"):
     """The configuration on ``device`` with its own generator: one round
-    counting host syncs, two timed; the quality gates on the last."""
+    counting host syncs and the PnP kernel's launches, two timed; the
+    quality gates on the last.  Returns the kernel's launches in the
+    first round."""
+    from tadataka_torch.utils.timing import trace
     args = dict(vo_args=FEATURE_CONFIGS[config]["vo"],
                 prefetch=config == "synthetic")
-    vo, poses, _, syncs, stats = drive_feature(
-        frames, device, count_syncs=device == "cuda", **args)
+    with trace() as tr:
+        vo, poses, _, syncs, stats = drive_feature(
+            frames, device, count_syncs=device == "cuda", **args)
+    pnp_launches = pnp_kernel_launches(tr)
     rounds = []
     for _ in range(2):
         vo, poses, ms, _, _ = drive_feature(frames, device, **args)
@@ -2105,7 +2200,8 @@ def feature_run_on(config, frames, gt, smi, device="cuda"):
         + ", ".join(f"{m:.1f}" for m in rounds[-1]) + f" ({smi})")
     log("feature", f"{config}: keypoints per frame {keypoints}, matches "
         f"kept {matches}, PnP inliers {inliers}, map points "
-        f"{len(vo.point_dict)}, host syncs per frame {syncs}")
+        f"{len(vo.point_dict)}, host syncs per frame {syncs}, PnP kernel "
+        f"launches {pnp_launches} (15 a Gauss-Newton)")
     log("feature", f"{config}: stages of the last frame, median of 5: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
         + " (the Gauss-Newton of both PnPs, within PnP + guided)")
@@ -2118,7 +2214,7 @@ def feature_run_on(config, frames, gt, smi, device="cuda"):
     assert share < FEATURE_ATE_MARGIN * ref, (config, share)
     assert config not in FEATURE_COS or cos > FEATURE_COS[config], (
         config, cos)
-    return frames
+    return pnp_launches
 
 
 def feature_cpu_vs_card(name, frames, vo_args, devices=("cpu", "cuda")):
@@ -2266,14 +2362,17 @@ def phase_feature(smi):
     bench_euroc's setting and the multi-plane scene at 480x640 with
     bench_feature_vo's, each timed and gated on quality; then EuRoC and
     the reference's 120x160 test sequence on the CPU and the card with
-    the same draws."""
+    the same draws.  Returns the PnP kernel's launches in the runs that
+    count host syncs."""
+    launches = 0
     for config in FEATURE_CONFIGS:
         frames, gt = feature_frames(config)
-        feature_run_on(config, frames, gt, smi)
+        launches += feature_run_on(config, frames, gt, smi)
         if config == "euroc":
             euroc_frames = frames
     feature_cpu_vs_card("euroc", euroc_frames, FEATURE_CONFIGS["euroc"]["vo"])
     feature_test_sequence()
+    return launches
 
 
 # VITAMIN-E (phase vitamin_e): examples/vitamin_e_vo.py's trajectory on
@@ -2413,11 +2512,16 @@ def vitamin_e_cpu_vs_card(frames, devices=("cpu", "cuda")):
 def phase_vitamin_e(smi):
     """VitaminEVO at 480x640 on the card: the CPU-card comparison, then a
     run with the card's own generator gated on the JAX readings, host
-    syncs and ms/frame, and the stage times of the last frame."""
+    syncs, the PnP kernel's launches and ms/frame, and the stage times of
+    the last frame.  Returns the kernel's launches in the run that
+    counts host syncs."""
     from tadataka_torch.metrics import absolute_trajectory_error
+    from tadataka_torch.utils.timing import trace
     frames, gt = vitamin_e_frames()
     vitamin_e_cpu_vs_card(frames)
-    _, _, _, syncs = drive_vitamin_e(frames, "cuda", count_syncs=True)
+    with trace() as tr:
+        _, _, _, syncs = drive_vitamin_e(frames, "cuda", count_syncs=True)
+    pnp_launches = pnp_kernel_launches(tr)
     vo, poses, ms, _ = drive_vitamin_e(frames, "cuda")
     assert all(p is not None for p in poses), poses
     est = np.stack([p.t.numpy() for p in poses]).astype(np.float64)
@@ -2431,7 +2535,8 @@ def phase_vitamin_e(smi):
         f"ms/frame; per-frame ms: " + ", ".join(f"{m:.1f}" for m in ms)
         + f" ({smi})")
     log("vitamin_e", f"tracks per frame {[len(k.ids) for k in vo.keypoints]}"
-        f", map points {len(vo.points)}, host syncs per frame {syncs}")
+        f", map points {len(vo.points)}, host syncs per frame {syncs}, "
+        f"PnP kernel launches by frame {tr.counts['pnp.normal_kernel']}")
     log("vitamin_e", "stages of the last frame, median of 5: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
     ref = JAX_VITAMIN_E
@@ -2442,6 +2547,7 @@ def phase_vitamin_e(smi):
     assert share < FEATURE_ATE_MARGIN * ref["ate_share"], share
     assert len(vo.points) >= 0.8 * ref["map_points"]
     assert len(vo.points) > 1000
+    return pnp_launches
 
 
 # ------------------------------------------------------- the parallel phase
@@ -3145,25 +3251,29 @@ def main():
             f"{time.perf_counter() - t_export:.1f} s")
         phase_dvo_cpu_gpu(tum_root)
         phase_dvo(tum_root)
-    phase_feature(smi)
-    phase_vitamin_e(smi)
+    pnp_launches = phase_feature(smi)
+    pnp_launches += phase_vitamin_e(smi)
     parallel_launches, _ = phase_parallel(smi)
     launches += parallel_launches
     launches += phase_long(smi)
     at48 = timings[("random", 48, 480, 640)]
+    pnp = timings["pnp_normal"]
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s; "
         "ms/plain_ms below: ssd_search (its ring design) at S=48, the SSD "
         "probes at S=32, the gather probes on their scripts' inputs, "
-        "480x640; launches: the slice, rect, pipelined, parallel and long "
-        "phases "
-        "(ssd_search), the "
-        "probe runs (the probes); bound_ms at the data sheet's 3.35 TB/s "
-        "and 67 TFLOP/s, ssd_search's at what its inputs need")
+        "480x640, pnp_normal at B=1, n=2000; launches: the slice, rect, "
+        "pipelined, parallel and long phases (ssd_search), the "
+        "probe runs (the probes), the feature and vitamin_e phases' "
+        "sync-counting drives (pnp_normal); bound_ms "
+        "at the data sheet's 3.35 TB/s and 67 TFLOP/s, ssd_search's at "
+        "what its inputs need")
     print(smi)
     print(json.dumps({"kernels": [kernel_entry(
         "ssd_search", SSD_SOURCE, SSD_REPLACES, launches, 0.0,
         at48["ms"]["ring"], at48["plain_ms"], at48["n_bytes"],
-        at48["flops"])] + probe_entries + gather_entries}))
+        at48["flops"])] + probe_entries + gather_entries + [kernel_entry(
+            "pnp_normal", PNP_SOURCE, PNP_REPLACES, pnp_launches, 0.0,
+            pnp["ms"], pnp["plain_ms"], pnp["n_bytes"], pnp["flops"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,30 +2,32 @@
 ``tadataka_tpu/pose_estimation/pnp.py``): fixed-trial RANSAC over EPnP,
 P3P or 6-point DLT hypotheses, run as one batch, then a masked
 Gauss-Newton refinement on the inliers.  Keypoints are NORMALIZED image
-coordinates.  The Gauss-Newton Jacobian comes from
-``torch.func.jacfwd`` under ``torch.func.vmap`` over the batch.
+coordinates.  A Gauss-Newton step's normal equations, with the Jacobian
+in closed form, are one CUDA kernel on the card (``pnp_normal``).
 
 The same bits on the CPU and the card: the fits' factorizations and the
-Gauss-Newton's 6x6 solves, with each step's rotation, run on the host
-(``core/solvers.py``; one host synchronization a Gauss-Newton step),
-products of small matrices
-and norms sum left to right, the normal equations' sums over the
-points pairwise in a fixed order (``core/rounding.py``)."""
+Gauss-Newton's 6x6 solves, with each step's rotation and pose update,
+run on the host (``core/solvers.py``; one host synchronization a
+Gauss-Newton step), products of small matrices and norms sum left to
+right, the normal equations' sums over the points pairwise in a fixed
+order (``core/rounding.py``), which the kernel repeats."""
+
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from tadataka_torch.core.pose import Pose
-from tadataka_torch.core.projection import pi
+from tadataka_torch.core.projection import EPSILON, pi
 from tadataka_torch.core.rounding import (
     fixed_order_sum, matmul_small, norm, sqrt, sum_small)
-from tadataka_torch.core.so3 import exp_so3, exp_so3_small
+from tadataka_torch.core.so3 import exp_so3
 from tadataka_torch.core.solvers import on_host, solve_nullspace
 from tadataka_torch.device import resolve_device, upload
 from tadataka_torch.features.ransac import (
     _sample_valid_indices, default_generator, take_rows, uniform_draws)
 from tadataka_torch.utils.exceptions import NotEnoughInliersException
-from tadataka_torch.utils.timing import probe, stage
+from tadataka_torch.utils.timing import count, probe, stage
 
 DEFAULT_TRIALS = 128
 MIN_CORRESPONDENCES = 6
@@ -85,54 +87,146 @@ def _reprojection_errors(R, t, points, keypoints):
     return torch.where(P[..., 2] <= 0, float("inf"), err)
 
 
-def _residuals(p, R, t, points, keypoints):
-    """Reprojection residuals (2n,) of the pose (exp(p[:3]) R, t + p[3:])
-    for an increment p near 0: its Jacobian is taken at p = 0, where
-    ``exp_so3`` takes its small-angle branch, so that branch alone is
-    differentiated (the same values and derivatives)."""
-    Rk = matmul_small(exp_so3_small(p[:3]), R)
-    P = matmul_small(points, Rk.transpose(-1, -2)) + (t + p[3:])
-    return (pi(P) - keypoints).reshape(-1)
+def pnp_jacobian(R, t, points, keypoints):
+    """The reprojection residuals r (B, 2n) of the pose (exp(p[:3]) R, t +
+    p[3:]) at p = 0 and their Jacobian J (B, 2n, 6) in p, point i's x in
+    row 2i and its y in row 2i + 1: R (B, 3, 3), t (B, 3), points (B, n,
+    3), keypoints (B, n, 2).
+
+    In closed form, in the order that gives the bits of
+    ``torch.func.jacfwd``: Y = R X summed left to right, P = Y + t, z =
+    P_z + EPSILON, u = P_xy / z, and each column's dP (-[Y]_x for the
+    rotation, I for the translation) becomes du = (dP_xy - dP_z u) / z."""
+    B, n = points.shape[:2]
+    Y = matmul_small(points, R.transpose(-1, -2))
+    P = Y + t[:, None, :]
+    z = P[..., 2:3] + EPSILON
+    u = P[..., :2] / z
+    y0, y1, y2 = Y.unbind(-1)
+    zero, one = torch.zeros_like(y0), torch.ones_like(y0)
+    # dP (B, n, 6, 3) of the increment (w_x, w_y, w_z, t_x, t_y, t_z)
+    dP = torch.stack([
+        torch.stack([zero, -y2, y1], -1), torch.stack([y2, zero, -y0], -1),
+        torch.stack([-y1, y0, zero], -1), torch.stack([one, zero, zero], -1),
+        torch.stack([zero, one, zero], -1),
+        torch.stack([zero, zero, one], -1)], -2)
+    du = (dP[..., :2] - dP[..., 2:3] * u[:, :, None, :]) / z[:, :, None, :]
+    return (u - keypoints).reshape(B, 2 * n), du.transpose(-1, -2).reshape(
+        B, 2 * n, 6)
 
 
-_jacobians = torch.func.vmap(torch.func.jacfwd(_residuals),
-                             in_dims=(None, 0, 0, 0, 0))
+def pnp_normal_reference(R, t, points, keypoints, weights):
+    """[J^T W J | J^T W r] (B, 6, 7) of :func:`pnp_jacobian`'s r and J,
+    weights (B, n) a point.  Plain PyTorch version of the kernel
+    ``pnp_normal``.  Each of the 42 products (J_a w) J_b and (J_a w) r is
+    its own rounding (the matrix is not mirrored), summed over the 2n
+    rows by ``fixed_order_sum``."""
+    r, J = pnp_jacobian(R, t, points, keypoints)
+    w = weights.repeat_interleave(2, -1)
+    Jw = (J * w[..., None]).transpose(-1, -2)           # (B, 6, 2n)
+    return fixed_order_sum(Jw[:, :, None, :] * torch.cat(
+        [J.transpose(-1, -2), r[:, None, :]], 1)[:, None, :, :])
+
+
+_PNP_SOURCE = Path(__file__).parent / "csrc" / "pnp_normal.cu"
+_pnp_library = None
+
+
+def pnp_normal_library():
+    """Build (at first use) and load the normal-equation kernel."""
+    global _pnp_library
+    if _pnp_library is None:
+        import ctypes
+        from tadataka_torch.cuda_build import build
+        built = build(_PNP_SOURCE)
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        built.lib.pnp_normal_launch.argtypes = [ptr] * 5 + [i64] * 2 + [
+            ptr] * 2
+        built.lib.pnp_normal_launch.restype = ctypes.c_int
+        _pnp_library = built
+    return _pnp_library
+
+
+def _check_normal_inputs(R, t, points, keypoints, weights):
+    if points.dim() != 3 or points.shape[-1] != 3:
+        raise ValueError(f"pnp_normal wants points (B, n, 3), got "
+                         f"{tuple(points.shape)}")
+    B, n = points.shape[:2]
+    for name, x, shape in (("R", R, (B, 3, 3)), ("t", t, (B, 3)),
+                           ("keypoints", keypoints, (B, n, 2)),
+                           ("weights", weights, (B, n))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"pnp_normal: {name} is {tuple(x.shape)}, "
+                             f"wants {shape}")
+    for name, x in (("R", R), ("t", t), ("points", points),
+                    ("keypoints", keypoints), ("weights", weights)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"pnp_normal: {name} must be float32, got "
+                            f"{x.dtype}")
+        if x.device != points.device:
+            raise ValueError(f"pnp_normal: {name} is on {x.device}, "
+                             f"points on {points.device}")
+
+
+def pnp_normal(R, t, points, keypoints, weights):
+    """[J^T W J | J^T W r] (B, 6, 7) of one Gauss-Newton step (see
+    :func:`pnp_normal_reference`).  A CUDA tensor launches the
+    hand-written kernel (csrc/pnp_normal.cu), which gives the plain
+    version's bits; a CPU tensor runs the plain version.  No fallback:
+    any other device, a non-contiguous input or a failed launch (the
+    launcher refuses B or n out of its range) raises.  Each launch is
+    counted as "pnp.normal_kernel"."""
+    _check_normal_inputs(R, t, points, keypoints, weights)
+    if points.device.type == "cpu":
+        return pnp_normal_reference(R, t, points, keypoints, weights)
+    if points.device.type != "cuda":
+        raise ValueError(f"pnp_normal: no kernel for device {points.device}")
+    B, n = points.shape[:2]
+    args = (R, t, points, keypoints, weights)
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("pnp_normal: inputs must be contiguous")
+    out = torch.empty((B, 6, 7), dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = pnp_normal_library().lib.pnp_normal_launch(
+            *(x.data_ptr() for x in args), B, n, out.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError(f"pnp_normal kernel launch failed: CUDA error "
+                           f"{status}")
+    count("pnp.normal_kernel")
+    return out
 
 
 def _refine_gauss_newton(R, t, points, keypoints, weights, n_iter):
     """Masked Gauss-Newton on (rotvec increment, t) minimizing the
     reprojection error: R (..., 3, 3), t (..., 3), points (..., n, 3),
-    keypoints (..., n, 2), weights (..., n)."""
+    keypoints (..., n, 2), weights (..., n).  A step is one
+    :func:`pnp_normal` and one host call (:func:`_step`)."""
     batch = torch.broadcast_shapes(R.shape[:-2], points.shape[:-2],
                                    keypoints.shape[:-2], weights.shape[:-1])
     n = points.shape[-2]
-    R = R.expand(batch + (3, 3)).reshape(-1, 3, 3)
-    t = t.expand(batch + (3,)).reshape(-1, 3)
-    points = points.expand(batch + (n, 3)).reshape(-1, n, 3)
-    keypoints = keypoints.expand(batch + (n, 2)).reshape(-1, n, 2)
-    w = weights.expand(batch + (n,)).reshape(-1, n).repeat_interleave(2, -1)
-    zero = torch.zeros(6, dtype=t.dtype, device=t.device)
-    eye = 1e-9 * torch.eye(6, dtype=t.dtype, device=t.device)
+    R = R.expand(batch + (3, 3)).reshape(-1, 3, 3).contiguous()
+    t = t.expand(batch + (3,)).reshape(-1, 3).contiguous()
+    points = points.expand(batch + (n, 3)).reshape(-1, n, 3).contiguous()
+    keypoints = keypoints.expand(batch + (n, 2)).reshape(-1, n,
+                                                         2).contiguous()
+    w = weights.expand(batch + (n,)).reshape(-1, n).contiguous()
     for _ in range(n_iter):
-        J = _jacobians(zero, R, t, points, keypoints)
-        r = (pi(_transform(R, t, points)) - keypoints).reshape(len(R), -1)
-        Jw = (J * w[..., None]).transpose(-1, -2)           # (B, 6, 2n)
-        # [J^T W J | J^T W r] (B, 6, 7) in one pairwise sum over the rows
-        normal = fixed_order_sum(Jw[:, :, None, :] * torch.cat(
-            [J.transpose(-1, -2), r[:, None, :]], 1)[:, None, :, :])
-        delta, step = on_host(_step, normal[..., :6] + eye, normal[..., 6])
-        R = matmul_small(step, R)
-        t = t + delta[:, 3:]
+        normal = pnp_normal(R, t, points, keypoints, w)
+        delta, R, t = on_host(_step, normal, R, t)
         probe("Gauss-Newton", delta=delta, R=R, t=t)
     return R.reshape(batch + (3, 3)), t.reshape(batch + (3,))
 
 
-def _step(JtJ, Jtr):
-    """The increment delta = -(J^T W J)^-1 J^T W r and its rotation
-    exp_so3(delta[:3]): on the host, where the solve's result is (the
-    same bits as on the card, ``core/so3.py``)."""
-    delta = torch.linalg.solve_ex(JtJ, -Jtr)[0]
-    return delta, exp_so3(delta[:, :3])
+def _step(normal, R, t):
+    """The increment delta = -(J^T W J + 1e-9 I)^-1 J^T W r and the pose
+    (exp_so3(delta[:3]) R, t + delta[3:]) it takes, on the host, where
+    the solve's result is (the same bits as on the card,
+    ``core/so3.py``)."""
+    eye = 1e-9 * torch.eye(6, dtype=normal.dtype, device=normal.device)
+    delta = torch.linalg.solve_ex(normal[..., :6] + eye, -normal[..., 6])[0]
+    return (delta, matmul_small(exp_so3(delta[:, :3]), R),
+            t + delta[:, 3:])
 
 
 def solve_pnp_ransac(points, keypoints, mask, rng,

@@ -902,3 +902,128 @@ def test_flat_take_rows_cluster_refuses_a_large_image():
         g.flat_take_rows(img, idx, design="cluster")
     assert g.same_bits(g.flat_take_rows(img, idx, design="stream"),
                        g.flat_take_rows_reference(img, idx))
+
+
+# ------------------------------------- PnP normal equations (pnp_normal.cu)
+
+def pnp_case(B, n, seed=0, zero_weights=False, nan_point=False):
+    """(R, t, points, keypoints, weights) float32 numpy inputs of
+    ``pnp_normal``: B poses near the identity, n points 4-6 m ahead, noisy
+    keypoints; ``zero_weights``: every third weight 0; ``nan_point``:
+    batch entry 0's point 1 at z + 1e-16 = 0 (its rows NaN or infinite)."""
+    g = np.random.default_rng(seed)
+    v = g.normal(0, 0.05, (B, 3))
+    angle = np.linalg.norm(v, axis=1)[:, None, None]
+    K = np.zeros((B, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -v[:, 2], v[:, 1], -v[:, 0]
+    K = (K - K.transpose(0, 2, 1)) / angle
+    R = np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+    t = g.normal(0, 0.2, (B, 3))
+    X = g.uniform(-1, 1, (B, n, 3)) + [0.0, 0.0, 5.0]
+    kp = g.normal(0, 0.2, (B, n, 2))
+    w = g.random((B, n))
+    if zero_weights:
+        w[:, ::3] = 0.0
+    R, t, X, kp, w = (a.astype(np.float32) for a in (R, t, X, kp, w))
+    if nan_point and n > 1:
+        R[0], t[0] = np.eye(3, dtype=np.float32), 0.0
+        X[0, 1] = [0.5, -0.25, -1e-16]
+    return R, t, X, kp, w
+
+
+def same_bit_patterns(a, b):
+    """The same float32 bits everywhere, NaN and the sign of 0 included."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def test_pnp_normal_rejects_bad_input():
+    from tadataka_torch.pose_estimation.pnp import pnp_normal
+    R, t, X, kp, w = (torch.tensor(a) for a in pnp_case(2, 5))
+    with pytest.raises(ValueError, match="points"):
+        pnp_normal(R, t, X[0], kp, w)
+    with pytest.raises(ValueError, match="keypoints"):
+        pnp_normal(R, t, X, kp[:, :4], w)
+    with pytest.raises(ValueError, match="weights"):
+        pnp_normal(R, t, X, kp, w[:1])
+    with pytest.raises(TypeError, match="float32"):
+        pnp_normal(R.double(), t, X, kp, w)
+
+
+def test_pnp_normal_cpu_runs_the_plain_version_uncounted():
+    from tadataka_torch.pose_estimation.pnp import (
+        pnp_normal, pnp_normal_reference)
+    from tadataka_torch.utils.timing import trace
+    args = [torch.tensor(a) for a in pnp_case(3, 7, zero_weights=True)]
+    with trace() as tr:
+        out = pnp_normal(*args)
+    assert same_bit_patterns(out, pnp_normal_reference(*args))
+    assert "pnp.normal_kernel" not in tr.counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,zero_weights,nan_point", [
+    (1, 1, False, False), (1, 3, False, False), (1, 1000, True, False),
+    (1, 2048, False, False), (1, 2049, True, False), (1, 5000, True, True),
+    (512, 3, False, False), (512, 3, True, True), (3, 37, True, True)])
+def test_pnp_normal_kernel_bit_equal_to_plain(B, n, zero_weights, nan_point):
+    """On the card: the normal-equation kernel against the plain version
+    on the same CUDA tensors, bit for bit (NaN bit patterns and the signs
+    of 0 too), and one launch counted per call."""
+    cuda_or_skip()
+    from tadataka_torch.pose_estimation.pnp import (
+        pnp_normal, pnp_normal_reference)
+    from tadataka_torch.utils.timing import trace
+    args = [torch.tensor(a, device="cuda") for a in pnp_case(
+        B, n, seed=B * 10007 + n, zero_weights=zero_weights,
+        nan_point=nan_point)]
+    ref = pnp_normal_reference(*args)
+    with trace() as tr:
+        out = pnp_normal(*args)
+    torch.cuda.synchronize()
+    assert tr.counts["pnp.normal_kernel"] == {None: 1}
+    assert out.shape == (B, 6, 7) and out.device.type == "cuda"
+    assert ref[0].isnan().any() == (nan_point and n > 1)
+    assert same_bit_patterns(out, ref), (B, n)
+
+
+@pytest.mark.cuda
+def test_pnp_normal_kernel_refuses():
+    """On the card: a non-contiguous input raises, and so does an empty
+    batch or point set, which the launcher refuses; nothing falls back."""
+    cuda_or_skip()
+    from tadataka_torch.pose_estimation.pnp import pnp_normal
+    R, t, X, kp, w = (torch.tensor(a, device="cuda") for a in pnp_case(2, 9))
+    with pytest.raises(ValueError, match="contiguous"):
+        pnp_normal(R.transpose(-1, -2), t, X, kp, w)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pnp_normal(R[:0], t[:0], X[:0], kp[:0], w[:0])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pnp_normal(R, t, X[:, :0].contiguous(), kp[:, :0].contiguous(),
+                   w[:, :0].contiguous())
+
+
+@pytest.mark.cuda
+def test_pnp_refinement_launches_the_kernel_once_a_step():
+    """On the card: one solve_pnp_ransac counts exactly 15 launches of
+    the normal-equation kernel (its 15 Gauss-Newton steps) under
+    "pnp.normal_kernel"."""
+    cuda_or_skip()
+    from tadataka_torch.pose_estimation.pnp import (
+        GN_ITERATIONS, solve_pnp_ransac)
+    from tadataka_torch.features.ransac import default_generator
+    from tadataka_torch.utils.timing import trace
+    R, t, X, kp, _ = pnp_case(1, 200, seed=3)
+    P = X[0] @ R[0].T + t[0]
+    kp = (P[:, :2] / P[:, 2:]).astype(np.float32)
+    points, keypoints = torch.tensor(X[0], device="cuda"), torch.tensor(
+        kp, device="cuda")
+    mask = torch.ones(200, dtype=torch.bool, device="cuda")
+    with trace() as tr:
+        pose, inliers = solve_pnp_ransac(points, keypoints, mask,
+                                         default_generator("cuda"))
+    torch.cuda.synchronize()
+    assert GN_ITERATIONS == 15
+    assert sum(tr.counts["pnp.normal_kernel"].values()) == 15
+    assert inliers.all()
+    assert torch.allclose(pose.R.cpu(), torch.tensor(R[0]), atol=1e-4)

@@ -363,8 +363,9 @@ def test_solve_pnp_adaptive_threshold_and_packed():
 
 
 def test_gauss_newton_refinement():
-    """The masked Gauss-Newton (Jacobian by torch.func.jacfwd under vmap)
-    from a perturbed pose, batched, against the JAX refinement."""
+    """The masked Gauss-Newton (the closed-form Jacobian and normal
+    equations of ``pnp.pnp_normal``) from a perturbed pose, batched,
+    against the JAX refinement."""
     pts, R, t, _, x1 = scene(12, n=30, noise=1e-4)
     w = (np.arange(30) % 3 != 0).astype(np.float32)
     R0 = (Rotation.from_rotvec([0.01, -0.02, 0.005]).as_matrix()
@@ -379,3 +380,45 @@ def test_gauss_newton_refinement():
     for i in range(3):
         close(out[0][i], ref[0], 1e-5)
         close(out[1][i], ref[1], 1e-5)
+
+
+def _jacfwd_residuals(p, R, t, points, keypoints):
+    """The reprojection residuals (2n,) of the pose (exp(p[:3]) R, t +
+    p[3:]), through the small-angle branch of exp_so3 (the one taken at
+    p = 0)."""
+    from tadataka_torch.core.projection import pi
+    from tadataka_torch.core.rounding import matmul_small
+    from tadataka_torch.core.so3 import exp_so3_small
+    Rk = matmul_small(exp_so3_small(p[:3]), R)
+    P = matmul_small(points, Rk.transpose(-1, -2)) + (t + p[3:])
+    return (pi(P) - keypoints).reshape(-1)
+
+
+@pytest.mark.parametrize("B,n,zero_weights", [(1, 37, False), (3, 30, True),
+                                              (8 * 4, 3, False)])
+def test_closed_form_jacobian_equals_jacfwd(B, n, zero_weights):
+    """``pnp_jacobian``'s closed form and ``pnp_normal``'s normal
+    equations bit for bit against torch.func.jacfwd under vmap and the
+    same products summed by fixed_order_sum; (32, 3) is P3P's
+    refinement (8 trials, 4 solutions)."""
+    from tadataka_torch.core.rounding import fixed_order_sum
+    g = np.random.default_rng(B * 1000 + n)
+    R = T(Rotation.from_rotvec(g.normal(0, 0.3, (B, 3))).as_matrix(),
+          torch.float32)
+    t = T(g.normal(0, 0.5, (B, 3)), torch.float32)
+    X = T(g.uniform(-1, 1, (B, n, 3)) + [0, 0, 5], torch.float32)
+    kp = T(g.normal(0, 0.2, (B, n, 2)), torch.float32)
+    w = T(g.random((B, n)), torch.float32)
+    if zero_weights:
+        w[:, ::3] = 0.0
+    J_ref = torch.func.vmap(torch.func.jacfwd(_jacfwd_residuals),
+                            in_dims=(None, 0, 0, 0, 0))(
+        torch.zeros(6), R, t, X, kp)
+    r_ref = torch.func.vmap(_jacfwd_residuals, in_dims=(None, 0, 0, 0, 0))(
+        torch.zeros(6), R, t, X, kp)
+    r, J = pnp.pnp_jacobian(R, t, X, kp)
+    assert torch.equal(J, J_ref) and torch.equal(r, r_ref)
+    Jw = (J_ref * w.repeat_interleave(2, -1)[..., None]).transpose(-1, -2)
+    normal_ref = fixed_order_sum(Jw[:, :, None, :] * torch.cat(
+        [J_ref.transpose(-1, -2), r_ref[:, None, :]], 1)[:, None, :, :])
+    assert torch.equal(pnp.pnp_normal(R, t, X, kp, w), normal_ref)
