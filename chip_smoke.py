@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source,
 all at once), checks each against its plain PyTorch version on the
-card (both designs of the SSD search, "ring" and "thread", bit for
-bit, each timed beside the bound at its inputs, and the PnP
+card (the SSD search bit for bit, on inputs of both of the kernels its
+launcher picks from, timed beside the bound at its inputs, and the PnP
 normal-equation kernel), drives the SSD probes'
 entry point (``tadataka_torch.probes.exp_ssd``) and the gather probes'
 (``tadataka_torch.probes.dynamic_gather`` and ``flat_gather``),
@@ -16,8 +16,8 @@ three paths: the homography sweep over 12 synthetic frames, the
 rectified sweep over 10 frames of a lateral trajectory, and the
 scattered estimator (``depth_update="scatter"``) over 5 frames, each
 checked against ground truth.  The SSD searches of one steady frame of
-the first two are recorded as the main path made them, and both
-designs are checked and timed on them.  Last it runs DVO on the CPU and
+the first two are recorded as the main path made them, and the search
+is checked and timed on them.  Last it runs DVO on the CPU and
 on the card on the same inputs and drives ``DvoTrajectory`` over 8
 frames of a TUM RGB-D freiburg1 scene at 480x640, exported and read
 back through the TUM loader, gated on its trajectory error.  Then
@@ -34,8 +34,8 @@ draws: poses, map and every value the VO probes stage by stage bit for
 bit (the first that parts is named).  Last, ``VitaminEVO``
 (``vitamin_e``) at 480x640: its curvature, extrema, ORB descriptors,
 tracks, poses and map bit for bit on the CPU and the card, its
-trajectory and map gated on the JAX package's readings, its stage
-times, ms/frame and host syncs a frame printed.  Then ``parallel``: the
+trajectory and map gated on the JAX package's readings, its host
+syncs a frame printed.  Then ``parallel``: the
 last `tent` update of phase 5 column-sharded over 4 shards of the card
 (``make_sharded_update_sweep``: an ssd_search launch a shard, the maps
 bit for bit the one-device update's and the CPU's) and row-sharded
@@ -47,9 +47,9 @@ sequence at 80x100 on the CPU and the card (DVO's poses, the map after
 every update, the feature VO's poses and map, bit for bit), then 30
 frames at 480x640 through SemiDenseVO, PipelinedSemiDenseVO,
 DvoTrajectory and FeatureBasedVO, gated on the JAX package's readings
-(tools/long_vs_jax.py), with ms/frame and host syncs a frame early and
-late and device memory after frames 10 and 29 (held for the semi-dense
-apps).  Every
+(tools/long_vs_jax.py), with device memory after frames 10 and 29
+(held for the semi-dense apps).  Frame and stage times are the
+benchmark's (``bench_port/``); this script times kernels alone.  Every
 phase prints lines; any failure ends the script with a traceback and a
 non-zero exit.  The last lines are the card's name and power limit, a
 JSON line of per-kernel results, and a JSON line ``{"ok": true,
@@ -70,6 +70,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bench_port.harness.roofline import (
+    PEAK_BYTES_PER_S, PEAK_F32_PER_S, bound_s, ssd_search_work)
+
 ROOT = Path(__file__).resolve().parent
 SSD_SOURCE = "tadataka_torch/vo/semi_dense/csrc/ssd_search.cu"
 SSD_REPLACES = "tadataka_tpu/vo/semi_dense/sweep.py:184"
@@ -86,19 +89,6 @@ GATHER_REPLACES = {
     "flat_take_rows": "benchmarks/test_pallas_gather.py:82"}
 PNP_SOURCE = "tadataka_torch/pose_estimation/csrc/pnp_normal.cu"
 PNP_REPLACES = "none (the JAX package leaves the PnP Gauss-Newton step to XLA)"
-# flat_take_rows' time in its first design (a block per 2048 columns,
-# eight index rows a thread; NVIDIA H100 80GB HBM3 at 700 W, PERF.md's
-# kernel table), printed beside its time now
-FIRST_FLAT_TAKE_ROWS_MS = 0.1905
-# the card's data-sheet peaks (NVIDIA H100 SXM): device memory and
-# float32 outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# float operations of one SSD window at one pixel: the correlation and
-# the window norm (5 products and 4 sums each), then the normalized error
-# (root, product, sum, division, product, difference)
-SSD_FLOPS_PER_WINDOW = 24
-
 # the slice at full size
 VGA = (480, 640)
 VGA_FOCAL = 480.0
@@ -133,32 +123,25 @@ def log(phase, message):
     print(f"[{phase}] {message}", flush=True)
 
 
-def bound(n_bytes, flops=0):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    to move ``n_bytes`` at its data-sheet bandwidth and do ``flops``
-    float32 operations at its data-sheet rate, whichever is longer."""
-    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_F32_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
-
-
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
                  plain_ms, n_bytes, flops=0, library_ms=None):
-    """One kernel's entry of the kernels JSON line."""
-    bound_ms, bound_by = bound(n_bytes, flops)
+    """One kernel's entry of the kernels JSON line; the bound is
+    ``bench_port``'s roofline (the card's data-sheet peaks)."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S >= flops / PEAK_F32_PER_S
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": 1e3 * bound_s(n_bytes, flops),
+            "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": library_ms}
 
 
-def ssd_search_bytes_flops(S, H, W):
-    """What one SSD search must move and compute: V (S planes), K (5),
-    mlo and mhi read, best and three errors written; its windows' float
-    operations."""
-    return (S + 11) * H * W * 4, (S - 4) * H * W * SSD_FLOPS_PER_WINDOW
+def whole_search_work(S, H, W):
+    """``ssd_search_work`` of a search with every window in bounds:
+    V (S planes), K (5), mlo and mhi read, best and three errors
+    written, and every window's float operations."""
+    return ssd_search_work(torch.empty(S, 0), torch.zeros(H, W),
+                           torch.full((H, W), S - 5.0))
 
 
 def pnp_normal_bytes_flops(B, n):
@@ -203,41 +186,18 @@ class PlanLog:
         self.frames.append((frame_index, values))
 
 
-def sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
-def timed(device, fn, repeats=5):
-    """(median ms of ``repeats`` calls after one warm-up call, the last
-    call's result), synchronizing ``device`` around each."""
-    fn()
-    times = []
-    for _ in range(repeats):
-        sync(device)
-        t0 = time.perf_counter()
-        out = fn()
-        sync(device)
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), out
-
-
-def run_sequence(frames, vo, device, before=None):
+def run_sequence(frames, vo, before=None):
     """Drive ``vo.estimate`` over the frames, bootstrapping frame 1 with
-    the true pose; ``before(k)`` runs ahead of frame k, off the clock.
-    Returns (states, per-frame ms)."""
+    the true pose; ``before(k)`` runs ahead of frame k.  Returns the
+    states."""
     vo.initial_pose_fn = lambda image0, image1: (
         frames[1].pose.inv() * frames[0].pose)
-    states, ms = [], []
+    states = []
     for k, frame in enumerate(frames):
         if before is not None:
             before(k)
-        sync(device)
-        t0 = time.perf_counter()
         states.append(vo.estimate(frame))
-        sync(device)
-        ms.append((time.perf_counter() - t0) * 1e3)
-    return states, ms
+    return states
 
 
 def stereo_pair(shape=VGA, focal=VGA_FOCAL, baseline=STEREO_BASELINE):
@@ -355,34 +315,6 @@ def compare_search(name, out, ref):
     return bit_equal, share, err
 
 
-def search_work(V, K, mlo, mhi, tile):
-    """What one SSD search needs at these inputs: the share of windows
-    inside their bounds, the planes a ring tile of ``tile`` pixels reads
-    (the union of its pixels' ranges, mean over tiles), and the bound's
-    bytes, 4 B a float of planes m_lo .. m_hi + 4 and K where the range
-    is not empty, mlo, mhi and the four outputs everywhere (a pixel with
-    no window needs no sample to get its answer), and float operations,
-    24 a window in bounds."""
-    import torch.nn.functional as F
-    from tadataka_torch.vo.semi_dense.sweep import ssd_window_bounds
-    S = V.shape[0]
-    lo, hi = (x.ravel().long() for x in ssd_window_bounds(mlo, mhi, S))
-    live = lo <= hi
-    windows = torch.where(live, hi - lo + 1, 0).sum().item()
-    planes = torch.where(live, hi - lo + 5, 0).sum().item()
-    N = lo.numel()
-    n_tiles = -(-N // tile)
-    none = 1 << 30
-    tlo = F.pad(torch.where(live, lo, none), (0, n_tiles * tile - N),
-                value=none).view(n_tiles, tile).min(1).values
-    thi = F.pad(torch.where(live, hi, -none), (0, n_tiles * tile - N),
-                value=-none).view(n_tiles, tile).max(1).values
-    tile_planes = torch.where(tlo <= thi, thi - tlo + 5, 0).float().mean()
-    return dict(share=windows / (N * (S - 4)), tile_planes=tile_planes.item(),
-                n_bytes=4 * (planes + 5 * live.sum().item() + 6 * N),
-                flops=SSD_FLOPS_PER_WINDOW * windows)
-
-
 def same(a, b):
     """Equal, NaN in the same places (NaN payloads aside)."""
     return torch.equal(a.isnan(), b.isnan()) and torch.equal(
@@ -393,56 +325,47 @@ def all_same(out, ref):
     return all(same(a, b) for a, b in zip(out, ref))
 
 
-def check_designs(name, args):
-    """Every design of ssd_search bit-equal to the plain version on
-    ``args``, NaN in the same places; returns the plain version's
-    outputs."""
+def check_search(name, args):
+    """ssd_search (the kernel its launcher picks) bit-equal to the plain
+    version on ``args``, NaN in the same places; returns the plain
+    version's outputs."""
     from tadataka_torch.vo.semi_dense.sweep import (
-        SSD_DESIGNS, ssd_search, ssd_search_reference)
+        ssd_search, ssd_search_reference)
     ref = ssd_search_reference(*args)
-    for design in SSD_DESIGNS:
-        out = ssd_search(*args, design=design)
-        torch.cuda.synchronize()
-        if not all_same(out, ref):
-            raise AssertionError(f"ssd_search ({design}) differs from its "
-                                 f"plain version on {name}")
+    out = ssd_search(*args)
+    torch.cuda.synchronize()
+    if not all_same(out, ref):
+        raise AssertionError(f"ssd_search differs from its plain version on "
+                             f"{name}")
     return ref
 
 
 def time_search(phase, name, args):
-    """Both designs' and the plain version's times on ``args``, in turns
+    """ssd_search's and the plain version's times on ``args``, in turns
     (medians and quartiles of 20 rounds), beside the bound at these
     inputs; logs one line, returns the numbers."""
-    from tadataka_torch.probes.exp_ssd import cuda_times
+    from tadataka_torch.probes.exp_ssd import cuda_times, quartiles
     from tadataka_torch.vo.semi_dense.sweep import (
-        SSD_DESIGNS, ring_config, ssd_search, ssd_search_reference)
+        ring_config, ssd_search, ssd_search_reference)
     S, H, W = args[0].shape
     plan = ring_config(S, H, W)
-    work = search_work(*args, plan["tile"])
-    fns = {d: lambda d=d: ssd_search(*args, design=d) for d in SSD_DESIGNS}
-    fns["plain"] = lambda: ssd_search_reference(*args)
-    times = cuda_times(fns)
-    ms = {d: statistics.median(times[d]) for d in SSD_DESIGNS}
+    n_bytes, flops = ssd_search_work(args[0], args[2], args[3])
+    times = cuda_times({"kernel": lambda: ssd_search(*args),
+                        "plain": lambda: ssd_search_reference(*args)})
+    ms, q1, q3 = quartiles(times["kernel"])
     plain_ms = statistics.median(times["plain"])
-    spread = {d: statistics.quantiles(times[d], n=4)[::2]
-              for d in SSD_DESIGNS}
-    bound_ms, bound_by = bound(work["n_bytes"], work["flops"])
-    full_ms = bound(*ssd_search_bytes_flops(S, H, W))[0]
-    log(phase, f"{name} S={S} {H}x{W}: ring {ms['ring']:.4f} ms (quartiles "
-        f"{spread['ring'][0]:.4f}-{spread['ring'][1]:.4f}), thread "
-        f"{ms['thread']:.4f} ms ({spread['thread'][0]:.4f}-"
-        f"{spread['thread'][1]:.4f}), plain {plain_ms:.4f} ms, timed in "
-        f"turns; windows in bounds "
-        f"{work['share']:.4f}, a {plan['tile']}-px tile reads "
-        f"{work['tile_planes']:.1f} of {S} planes; bound at these inputs "
-        f"{bound_ms:.4f} ms ({bound_by}; ring {bound_ms / ms['ring']:.3f} of "
-        f"it, thread {bound_ms / ms['thread']:.3f}), reading all of V "
-        f"{full_ms:.4f} ms; "
+    bound_ms = 1e3 * bound_s(n_bytes, flops)
+    log(phase, f"{name} S={S} {H}x{W}: ssd_search {ms:.4f} ms (quartiles "
+        f"{q1:.4f}-{q3:.4f}), plain {plain_ms:.4f} ms, timed in turns; "
+        f"bound at these inputs {bound_ms:.4f} ms ({bound_ms / ms:.3f} of "
+        f"it), reading all of V "
+        f"{1e3 * bound_s(*whole_search_work(S, H, W)):.4f} ms; "
         + (f"ring grid {plan['grid']} x {plan['threads']} threads "
            f"({plan['blocks_per_sm']} an SM), {plan['shared_bytes']} B "
            "shared a block" if plan["ring"] else
-           "H*W % 4 != 0: \"ring\" runs the thread kernel"))
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, **work)
+           "H*W % 4 != 0: the thread kernel runs"))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                n_bytes=n_bytes, flops=flops)
 
 
 def pnp_normal_inputs(B, n, seed, nan_point=False):
@@ -495,10 +418,10 @@ def check_pnp_normal():
         ms = {k: statistics.median(v) for k, v in times.items()}
         q1, _, q3 = statistics.quantiles(times["kernel"], n=4)
         n_bytes, flops = pnp_normal_bytes_flops(B, n)
-        bound_ms, bound_by = bound(n_bytes, flops)
         log("kernel", f"pnp_normal B={B} n={n}: kernel {ms['kernel']:.4f} "
             f"ms (quartiles {q1:.4f}-{q3:.4f}), plain {ms['plain']:.4f} ms, "
-            f"timed in turns; bound {bound_ms:.6f} ms ({bound_by})")
+            f"timed in turns; bound {1e3 * bound_s(n_bytes, flops):.6f} "
+            "ms")
         results[(B, n)] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                                n_bytes=n_bytes, flops=flops)
     return results[(1, 2000)]
@@ -520,13 +443,13 @@ def pnp_kernel_launches(tr):
 
 
 def phase_kernel_vs_plain():
-    """Both designs of the SSD search bit-equal to the plain version on
-    the same tensors, on random stacks up to the rect plan's 256 planes,
-    at odd sizes (H*W % 4 of 3 and 1, where "ring" runs the thread
-    kernel) and on rect-shaped stacks, each timed beside the bound at its
-    inputs; then on stacks whose window errors are NaN (``nan_inputs``,
-    NaN in the same places; not timed); the ring kernel's SASS must hold
-    its bulk copies (UBLKCP).  Last the PnP normal-equation kernel
+    """The SSD search bit-equal to the plain version on the same tensors,
+    on random stacks up to the rect plan's 256 planes, at odd sizes (H*W
+    % 4 of 3 and 1, where the launcher runs the thread kernel) and on
+    rect-shaped stacks, each timed beside the bound at its inputs; then
+    on stacks whose window errors are NaN (``nan_inputs``, NaN in the
+    same places; not timed); the ring kernel's SASS must hold its bulk
+    copies (UBLKCP).  Last the PnP normal-equation kernel
     (:func:`check_pnp_normal`), its numbers under "pnp_normal"."""
     from tadataka_torch.probes.ssd_ring import (
         nan_inputs, rect_inputs, ssd_inputs)
@@ -541,17 +464,17 @@ def phase_kernel_vs_plain():
     for kind, S, H, W in cases:
         make = ssd_inputs if kind == "random" else rect_inputs
         args = make(S, H, W, seed=S * 1000 + H)
-        ref = check_designs(f"{kind} S={S} {H}x{W}", args)
-        log("kernel", f"ssd_search {kind} S={S} {H}x{W}: ring and thread "
-            f"bit-equal to plain; {(ref[0] >= 0).float().mean().item():.3f} "
-            "of pixels match")
+        ref = check_search(f"{kind} S={S} {H}x{W}", args)
+        log("kernel", f"ssd_search {kind} S={S} {H}x{W}: bit-equal to "
+            f"plain; {(ref[0] >= 0).float().mean().item():.3f} of pixels "
+            "match")
         results[(kind, S, H, W)] = time_search("kernel", kind, args)
     log_clocks("kernel", "after")
     for S, H, W in ((16, *VGA), (48, *VGA), (256, *VGA), (48, 479, 641)):
-        ref = check_designs(f"nan S={S} {H}x{W}",
-                            nan_inputs(S, H, W, seed=S + H))
-        log("kernel", f"ssd_search nan S={S} {H}x{W}: ring and thread "
-            "bit-equal to plain, NaN in the same places (NaN ec on "
+        ref = check_search(f"nan S={S} {H}x{W}",
+                           nan_inputs(S, H, W, seed=S + H))
+        log("kernel", f"ssd_search nan S={S} {H}x{W}: bit-equal to plain, "
+            "NaN in the same places (NaN ec on "
             f"{ref[1].isnan().sum().item()}, en on "
             f"{ref[3].isnan().sum().item()} pixels, no best on "
             f"{(ref[0] < 0).sum().item()})")
@@ -571,21 +494,20 @@ def phase_probes():
     probe against its plain version at every S the entry point times
     (32, 48, 128, 256; the two-pass search's slab passes 48 KB from
     S = 100), 480x640, on exp_ssd.py's inputs and on ssd_inputs' harder
-    case: the copy floor in every variant (the thread designs and the
-    bulk-copy ring), every serial "thread" variant and the serial "tile"
-    design bit-equal to ssd_search and to the plain version, the
-    two-pass search in both designs bit-equal to its plain version and
-    within compare_search's bounds of the serial search (another error
-    form), with the re-score counts of serial "tile"; and the same on
+    case: the copy floor in every variant (the thread variants and the
+    bulk-copy ring), ssd_serial bit-equal to ssd_search and to the plain
+    version ("tile" up to S = 128, with its re-score counts, and the
+    "thread" kernel in every block shape above), the two-pass search
+    bit-equal to its plain version and within compare_search's bounds of
+    the serial search (another error form); and the same on
     ``nan_inputs``, NaN in the same places (each form by its own Pallas
-    kernel's NaN rule, so the two searches are not compared there).
-    The bulk-copy floor's best time at each S is printed beside the
-    thread variants' and torch.sum's, each design of the two searches
-    beside the bound, its kernel's SASS must hold its
-    bulk copies (UBLKCP; the "tile" kernels also UTMALDG), and the
-    instructions a window of each search kernel's window loop are
-    printed.  Returns the kernels' JSON entries (the searches in their
-    default design) and the measured floor in GB/s."""
+    kernel's NaN rule, so the two searches are not compared there).  The
+    bulk-copy floor's best time at each S is printed beside the thread
+    variants' and torch.sum's, each search beside the bound, the copy
+    floor's SASS must hold its bulk copies (UBLKCP; the "tile" kernels
+    also UTMALDG), and the instructions a window of each search kernel's
+    window loop are printed.  Returns the kernels' JSON entries and the
+    measured floor in GB/s."""
     from tadataka_torch.probes import exp_ssd as probes
     from tadataka_torch.probes.ssd_ring import nan_inputs, ssd_inputs
     from tadataka_torch.vo.semi_dense.sweep import ssd_search
@@ -601,6 +523,7 @@ def phase_probes():
 
     errs = dict.fromkeys(launches, 0.0)
     for S in probes.PLANES:
+        tile = probes.serial_design(S) == "tile"
         for case, args in (("exp_ssd inputs", probes.probe_inputs(S, *VGA)),
                            ("hard case", ssd_inputs(S, *VGA, seed=S)),
                            ("nan case", nan_inputs(S, *VGA, seed=S))):
@@ -615,48 +538,41 @@ def phase_probes():
                 assert same(out, ref), (S, case, variant)
             search = ssd_search(*args)
             plain = probes.ssd_serial_reference(*args)
-            for variant in probes.SERIAL_VARIANTS:
-                out = probes.ssd_serial(*args, *variant, design="thread")
+            rescore = (torch.zeros(3, dtype=torch.int64, device="cuda")
+                       if tile else None)
+            for variant in [()] if tile else probes.SERIAL_VARIANTS:
+                out = probes.ssd_serial(*args, *variant, rescore=rescore)
                 torch.cuda.synchronize()
                 assert all_same(out, search) and all_same(out, plain), \
                     (S, case, variant)
-            rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
-            out = probes.ssd_serial(*args, design="tile", rescore=rescore)
-            torch.cuda.synchronize()
-            assert all_same(out, search) and all_same(out, plain), \
-                (S, case, "tile")
-            n_exact, n_scan, n_sweep = rescore.tolist()
+            par = probes.ssd_par(*args)
             par_ref = probes.ssd_par_reference(*args)
-            lines = []
-            for design in probes.PAR_DESIGNS:
-                par = probes.ssd_par(*args, design=design)
-                torch.cuda.synchronize()
-                if case != "nan case":
-                    errs["ssd_par"] = max(errs["ssd_par"], max(
-                        (a.double() - b.double()).abs().max().item()
-                        for a, b in zip(par[1:], par_ref[1:])))
-                if not all_same(par, par_ref):
-                    raise AssertionError(f"ssd_par {design} differs from its "
-                                         f"plain version, {case}, S={S}")
-                line = f"ssd_par {design} bit-equal to plain"
-                if case != "nan case":
-                    _, vs_share, vs_err = compare_search(
-                        f"ssd_par {design} vs ssd_serial, {case}, S={S}",
-                        par, search)
-                    line += (f", vs ssd_serial: best equal {vs_share:.6f}, "
-                             f"max |d| {vs_err}")
-                else:
-                    line += (f" (bm = M on {(par[0] == S - 4).sum().item()} "
-                             "pixels)")
-                lines.append(line)
+            torch.cuda.synchronize()
+            if not all_same(par, par_ref):
+                raise AssertionError(f"ssd_par differs from its plain "
+                                     f"version, {case}, S={S}")
+            line = "ssd_par bit-equal to plain"
+            if case != "nan case":
+                errs["ssd_par"] = max(errs["ssd_par"], max(
+                    (a.double() - b.double()).abs().max().item()
+                    for a, b in zip(par[1:], par_ref[1:])))
+                _, vs_share, vs_err = compare_search(
+                    f"ssd_par vs ssd_serial, {case}, S={S}", par, search)
+                line += (f", vs ssd_serial: best equal {vs_share:.6f}, "
+                         f"max |d| {vs_err}")
+            else:
+                line += f" (bm = M on {(par[0] == S - 4).sum().item()} pixels)"
+            if tile:
+                n_exact, n_scan, n_sweep = rescore.tolist()
+                serial = (f"tile (re-scored {n_exact / (VGA[0] * VGA[1]):.3f}"
+                          f" windows a pixel exactly, {n_scan} pixels scanned"
+                          f" every window, {n_sweep} swept again for several"
+                          " candidates)")
+            else:
+                serial = f"thread in {len(probes.SERIAL_VARIANTS)} block shapes"
             log("probes", f"{case}, S={S} 480x640: copy floor bit-equal to "
                 f"plain in {len(probes.COPY_VARIANTS)} variants; ssd_serial "
-                "bit-equal to ssd_search and to plain in "
-                f"{len(probes.SERIAL_VARIANTS)} thread variants and tile "
-                f"(tile re-scored {n_exact / (VGA[0] * VGA[1]):.3f} windows "
-                f"a pixel exactly, {n_scan} pixels scanned every window, "
-                f"{n_sweep} swept again for several candidates); "
-                + "; ".join(lines))
+                f"bit-equal to ssd_search and to plain, {serial}; {line}")
 
     args = probes.probe_inputs(32, *VGA)
     plain_ms = {
@@ -667,14 +583,11 @@ def phase_probes():
         "ssd_par": probes.cuda_ms(lambda: probes.ssd_par_reference(*args))}
     at32 = timings[32]
     best_floor = min(at32["floor"], key=at32["floor"].get)
-    default = {"ssd_serial": probes.serial_design(32),
-               "ssd_par": probes.PAR_DESIGNS[0]}
     ms = {"ssd_copy_floor": at32["floor"][best_floor]}
-    for name, design in default.items():
-        ms[name] = statistics.median(at32["designs"][f"{name} {design}"])
+    for name in ("ssd_serial", "ssd_par"):
+        ms[name] = statistics.median(at32["turns"][name])
     log("probes", "the kernels line gives the copy floor's fastest variant "
-        f"at S=32 ({probes.copy_variant_name(best_floor)}) and each "
-        f"search's default design: {default}")
+        f"at S=32 ({probes.copy_variant_name(best_floor)})")
     H, W = VGA
     bulk = [v for v in probes.COPY_VARIANTS if v[0] == "bulk"]
     for S, t in timings.items():
@@ -682,13 +595,14 @@ def phase_probes():
         floor = min(t["floor"].values())
         old = min(ms for v, ms in t["floor"].items() if v[0] == "threads")
         new = min(t["floor"][v] for v in bulk)
-        bound_ms = bound(*ssd_search_bytes_flops(S, H, W))[0]
+        bound_ms = 1e3 * bound_s(*whole_search_work(S, H, W))
         medians = {name: statistics.median(x)
-                   for name, x in t["designs"].items()}
+                   for name, x in t["turns"].items()}
+        search = medians["ssd_search"]
         log("probes", f"S={S}: measured V-read floor {floor:.4f} ms "
             f"({gb / floor:.1f} GB/s, {gb / floor / 3350:.3f} of the "
-            f"3.35 TB/s data sheet); ssd_search {t['search']:.4f} ms "
-            f"({gb / t['search']:.1f} GB/s) = {floor / t['search']:.3f} of "
+            f"3.35 TB/s data sheet); ssd_search {search:.4f} ms "
+            f"({gb / search:.1f} GB/s) = {floor / search:.3f} of "
             "the measured floor; in turns: " + ", ".join(
                 f"{name} {m:.4f} ms ({bound_ms / m:.3f} of the "
                 f"{bound_ms:.4f} ms bound)" for name, m in medians.items()))
@@ -718,10 +632,10 @@ def phase_probes():
         if "tile" in title:
             assert counts["UTMALDG"] > 0 and counts["UBLKCP"] > 0, counts
     library_ms = at32["sum"]
-    search_bytes, search_flops = ssd_search_bytes_flops(32, H, W)
+    search_work = whole_search_work(32, H, W)
     work = {"ssd_copy_floor": (33 * H * W * 4, 31 * H * W, library_ms),
-            "ssd_serial": (search_bytes, search_flops, None),
-            "ssd_par": (search_bytes, search_flops, None)}
+            "ssd_serial": (*search_work, None),
+            "ssd_par": (*search_work, None)}
     floor_gbs = max(S * H * W * 4 / 1e6 / min(t["floor"].values())
                     for S, t in timings.items())
     entries = [kernel_entry(name, PROBE_SOURCE, PROBE_REPLACES[name],
@@ -847,7 +761,7 @@ def compare_sequences(devices):
     for device in devices:
         plans = PlanLog()
         vo = make_vo((120, 160), 120.0, device, metrics=plans)
-        states, _ = run_sequence(frames, vo, device)
+        states = run_sequence(frames, vo)
         runs.append([
             tuple(x.cpu().numpy() if x is not None else None
                   for x in (s.pose_wc.T, s.depth_map, s.flag_map))
@@ -883,7 +797,6 @@ def compare_updates(devices):
     >= 99% of pixels, median relative depth d <= 1e-3 on pixels SUCCESS
     on both (the lines say whether they are bit-equal)."""
     from tadataka_torch.apps.semi_dense_vo import prepare_image, to_gray_f32
-    from tadataka_torch.core.transforms import inv_motion_matrix
     from tadataka_torch.dataset import multi_plane_scene
     from tadataka_torch.vo.semi_dense import (
         SemiDenseParams, make_frame, stack_frames)
@@ -966,25 +879,23 @@ RECT_GATES = dict(success=0.5 * 0.098, err=1.25 * 1.159, cos=0.798 - 0.1)
 
 class SearchCapture:
     """While active, records (clones of) the inputs of every ssd_search
-    call the main path makes, or with ``record=False`` records nothing;
-    ``design`` (if given) is passed to every call.  sweep.py calls
-    ssd_search as its module's global and sweep_rect.py under the name
-    it imported, so both names are replaced for the duration by a
-    callable that records and calls the real function; the main path's
-    code is untouched.  The real function counts its launches on
-    ``ssd_search.launches``, a lookup of its module's global, so the
-    callable forwards that attribute."""
+    call the main path makes in ``calls``.  sweep.py calls ssd_search as
+    its module's global and sweep_rect.py under the name it imported, so
+    both names are replaced for the duration by a callable that records
+    and calls the real function; the main path's code is untouched.  The
+    real function counts its launches on ``ssd_search.launches``, a
+    lookup of its module's global, so the callable forwards that
+    attribute."""
 
-    def __init__(self, design=None, record=True):
-        self.calls = [] if record else None
-        self._design = design
+    def __init__(self):
+        self.calls = []
 
     def __enter__(self):
         import tadataka_torch.vo.semi_dense.sweep as sweep
         import tadataka_torch.vo.semi_dense.sweep_rect as sweep_rect
         self._modules = (sweep, sweep_rect)
         self._real = sweep.ssd_search
-        recording = _Recording(self._real, self.calls, self._design)
+        recording = _Recording(self._real, self.calls)
         for module in self._modules:
             module.ssd_search = recording
         return self
@@ -995,20 +906,15 @@ class SearchCapture:
 
 
 class _Recording:
-    """ssd_search that first clones its inputs into ``calls`` (unless
-    None) and runs ``design`` (unless None)."""
+    """ssd_search that first clones its inputs into ``calls``."""
 
-    def __init__(self, real, calls, design):
+    def __init__(self, real, calls):
         self._real = real
         self._calls = calls
-        self._design = design
 
-    def __call__(self, V, K, mlo, mhi, **kwargs):
-        if self._calls is not None:
-            self._calls.append(tuple(x.clone() for x in (V, K, mlo, mhi)))
-        if self._design is not None:
-            kwargs["design"] = self._design
-        return self._real(V, K, mlo, mhi, **kwargs)
+    def __call__(self, V, K, mlo, mhi):
+        self._calls.append(tuple(x.clone() for x in (V, K, mlo, mhi)))
+        return self._real(V, K, mlo, mhi)
 
     @property
     def launches(self):
@@ -1021,9 +927,9 @@ class _Recording:
 
 def drive(phase, frames, vo, device):
     """Drive ``vo.estimate`` over the frames with ssd_search's count at 0
-    before and read after; log the plans, the step time and the quality,
-    check the maps are finite and that the bootstrap frame improved the
-    initial map, then time the stages of the last frame.  Returns
+    before and read after; log the plans and the quality, check the maps
+    are finite and that the bootstrap frame improved the initial map,
+    then make the last frame's update again from its inputs.  Returns
     (states, launches, plans of frames 1..n-1, quality, the ssd_search
     inputs of the last frame's update)."""
     from tadataka_torch.flags import Flag
@@ -1039,12 +945,14 @@ def drive(phase, frames, vo, device):
     plan_fn = vo._plan
     vo._plan = lambda key_T: used.append(plan_fn(key_T)) or used[-1]
     ssd_search.launches = 0
-    states, ms = run_sequence(frames, vo, device, before=keep_last_inputs)
+    states = run_sequence(frames, vo, before=keep_last_inputs)
     launches = ssd_search.launches
 
     plans = [p for _, p in vo.metrics.frames]
-    log(phase, "plans: " + ", ".join(
-        f"{p['plan_path']}/{p['plan_n_planes']}" for p in plans))
+    log(phase, f"{tuple(frames[0].depth_map.shape)}, {len(frames)} frames;"
+        " plans: " + ", ".join(
+            f"{p['plan_path']}/{p['plan_n_planes']}" for p in plans)
+        + f"; ssd_search launches {launches}")
     for s in states:
         for x in (s.depth_map, s.variance_map, s.pose_wc.R, s.pose_wc.t):
             assert bool(torch.isfinite(x).all())
@@ -1055,13 +963,6 @@ def drive(phase, frames, vo, device):
     flags = states[-1].flag_map.cpu().numpy()
     shares = ", ".join(f"{f.name} {np.mean(flags == int(f)):.3f}"
                        for f in Flag if np.any(flags == int(f)))
-    steady = ms[3:]
-    log(phase, f"{tuple(frames[0].depth_map.shape)}, {len(frames)} frames;"
-        " per-frame ms: " + ", ".join(f"{m:.1f}" for m in ms))
-    log(phase, f"steady state (frames 3-{len(frames) - 1}): "
-        f"{sum(steady) / len(steady):.2f} ms/frame, "
-        f"{1e3 * len(steady) / sum(steady):.2f} fps; ssd_search launches "
-        f"{launches}")
     log(phase, f"initial map: median |depth - GT| {init_err:.3f}; "
         f"bootstrap frame: SUCCESS share {boot_success:.3f}, median "
         f"|depth - GT| {boot_err:.4f}; last frame: SUCCESS share "
@@ -1069,7 +970,7 @@ def drive(phase, frames, vo, device):
         f"{cos:.4f}")
     log(phase, f"last frame's flags: {shares}")
     assert boot_err < 0.25 * init_err, (boot_err, init_err)
-    searches = stage_times(phase, vo, frame=frames[-1], device=device,
+    searches = last_update(phase, vo, frame=frames[-1], device=device,
                            plan=used[-1] if used else None, **last_inputs)
     return states, launches, plans, (success, err, cos), searches
 
@@ -1082,8 +983,7 @@ def check_gates(quality, gates):
 
 def phase_slice(device="cuda", shape=VGA, focal=VGA_FOCAL):
     """The slice at full size on phase 5's trajectory, where the planner
-    picks the homography sweep on every frame, timed, with the quality
-    gates.  Frames are rendered on the CPU, as a camera delivers them to
+    picks the homography sweep on every frame, with the quality gates.  Frames are rendered on the CPU, as a camera delivers them to
     the host."""
     from tadataka_torch.dataset import multi_plane_scene
     ds = multi_plane_scene(N_FRAMES, shape, (focal, focal),
@@ -1136,38 +1036,37 @@ def phase_rect(device="cuda", shape=VGA, focal=VGA_FOCAL):
 
 def phase_captured(searches):
     """The ssd_search inputs of one steady frame of the tent and the rect
-    drive, as the main path gave them: both designs bit-equal to the
-    plain version on each, and per search and per frame each design's
-    time beside the bound at those inputs, the share of windows in
-    bounds and the planes a ring tile reads.  The probes' "tile" designs
-    run on the same inputs (ssd_serial bit-equal, ssd_par within
-    bounds), the windows ssd_serial "tile" re-scores exactly are
+    drive, as the main path gave them: ssd_search bit-equal to the plain
+    version on each, and per search and per frame its time beside the
+    plain version's and the bound at those inputs.  The probes run on the
+    same inputs (ssd_serial bit-equal, ssd_par within bounds), the
+    windows ssd_serial re-scores exactly where it runs "tile" are
     counted, and the probes are timed there in turns.  Returns {path:
     frame totals}."""
     from tadataka_torch.probes import exp_ssd as probes
-    from tadataka_torch.vo.semi_dense.sweep import (
-        SSD_DESIGNS, ssd_window_bounds)
+    from tadataka_torch.vo.semi_dense.sweep import ssd_window_bounds
     log_clocks("captured", "before")
     totals = {}
     for path, calls in searches.items():
-        frame = dict(ms=dict.fromkeys(SSD_DESIGNS, 0.0), bound_ms=0.0)
+        frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
         rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
-        windows = pixels = 0
+        windows = pixels = tiled = 0
         par_equal = True
         census = {}
-        tile_ms = {"ssd_serial tile": 0.0, "ssd_serial thread": 0.0,
-                   "ssd_par tile": 0.0}
+        probe_ms = {"ssd_serial": 0.0, "ssd_par": 0.0}
         for i, args in enumerate(calls):
             name = f"the {path} frame's search {i}"
-            ref = check_designs(name, args)
-            out = probes.ssd_serial(*args, design="tile", rescore=rescore)
+            ref = check_search(name, args)
+            tile = probes.serial_design(args[0].shape[0]) == "tile"
+            tiled += tile
+            out = probes.ssd_serial(*args, rescore=rescore if tile else None)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-                raise AssertionError(f"ssd_serial tile differs from plain on "
+                raise AssertionError(f"ssd_serial differs from plain on "
                                      f"{name}")
             par_equal &= compare_search(
-                f"ssd_par tile on {name}", probes.ssd_par(
-                    *args, design="tile"), probes.ssd_par_reference(*args))[0]
+                f"ssd_par on {name}", probes.ssd_par(*args),
+                probes.ssd_par_reference(*args))[0]
             for key, n in probes.filter_census(*args).items():
                 census[key] = census.get(key, 0) + n
             lo, hi = (x.long() for x in ssd_window_bounds(
@@ -1175,34 +1074,31 @@ def phase_captured(searches):
             windows += torch.clamp(hi - lo + 1, min=0).sum().item()
             pixels += lo.numel()
             r = time_search("captured", f"{path} frame, search {i} of "
-                            f"{len(calls)} (ring, thread bit-equal to plain)",
-                            args)
-            for d in SSD_DESIGNS:
-                frame["ms"][d] += r["ms"][d]
-            frame["bound_ms"] += r["bound_ms"]
-            times = probes.cuda_times({name: (
-                lambda name=name: (probes.ssd_serial if "serial" in name
-                                   else probes.ssd_par)(
-                    *args, design=name.split()[1]))
-                for name in tile_ms})
-            for name, t in times.items():
-                tile_ms[name] += statistics.median(t)
+                            f"{len(calls)} (bit-equal to plain)", args)
+            for key in frame:
+                frame[key] += r[key]
+            times = probes.cuda_times({
+                "ssd_serial": lambda: probes.ssd_serial(*args),
+                "ssd_par": lambda: probes.ssd_par(*args)})
+            for key, t in times.items():
+                probe_ms[key] += statistics.median(t)
         n_exact, n_scan, n_sweep = rescore.tolist()
         census["candidates"] /= len(calls)
         log("captured", f"{path} frame, {len(calls)} searches, ssd_serial "
-            "tile bit-equal to plain, ssd_par tile "
-            f"{'bit-equal to plain' if par_equal else 'within bounds'}: tile "
-            f"re-scored {n_exact / pixels:.3f} windows a pixel exactly of "
-            f"{windows / pixels:.3f} in bounds, {n_scan} of {pixels} pixels "
-            f"scanned every window, {n_sweep} swept again for several "
-            f"candidates; the plain filter's census (pixels): {census}; "
-            "the probes on these searches, in turns, medians summed: "
-            + ", ".join(f"{name} {ms:.4f} ms" for name, ms in tile_ms.items()))
-        log("captured", f"{path} frame, {len(calls)} searches: ring "
-            f"{frame['ms']['ring']:.4f} ms, thread "
-            f"{frame['ms']['thread']:.4f} ms, bound at these inputs "
-            f"{frame['bound_ms']:.4f} ms (ring {frame['bound_ms'] / frame['ms']['ring']:.3f} "
-            f"of it; thread / ring {frame['ms']['thread'] / frame['ms']['ring']:.2f}x)")
+            f"bit-equal to plain (tile on {tiled}), ssd_par "
+            f"{'bit-equal to plain' if par_equal else 'within bounds'}"
+            + (f": tile re-scored {n_exact / pixels:.3f} windows a pixel "
+               f"exactly of {windows / pixels:.3f} in bounds, {n_scan} of "
+               f"{pixels} pixels scanned every window, {n_sweep} swept "
+               "again for several candidates" if tiled == len(calls) else
+               f"; {windows / pixels:.3f} windows a pixel in bounds")
+            + f"; the plain filter's census (pixels): {census}; the probes "
+            "on these searches, in turns, medians summed: " + ", ".join(
+                f"{name} {ms:.4f} ms" for name, ms in probe_ms.items()))
+        log("captured", f"{path} frame, {len(calls)} searches: ssd_search "
+            f"{frame['ms']:.4f} ms, plain {frame['plain_ms']:.4f} ms, bound "
+            f"at these inputs {frame['bound_ms']:.4f} ms "
+            f"({frame['bound_ms'] / frame['ms']:.3f} of it)")
         totals[path] = frame
     log_clocks("captured", "after")
     return totals
@@ -1251,7 +1147,7 @@ def phase_app_gate(device="cuda"):
     vo = make_vo((80, 100), 80.0, device, metrics=plans, history_size=4,
                  n_coarse_to_fine=4)
     before = ssd_search.launches
-    states, _ = run_sequence(frames, vo, device)
+    states = run_sequence(frames, vo)
     success, err, cos = depth_and_pose_quality(states[-1], frames[-1])
     log("app-gate", f"80x100, 5 frames: plans "
         f"{[p['plan_path'] for _, p in plans.frames]}, SUCCESS share "
@@ -1446,30 +1342,21 @@ def make_pipelined(shape, focal, device, **overrides):
         devices=(device, device), **dict(SLICE_ARGS, **overrides))
 
 
-def run_pipelined(frames, vo, device):
+def run_pipelined(frames, vo):
     """Drive the pipelined app over the frames (bootstrap with the true
-    pose) and flush; returns (states, per-frame ms, flush ms): state k is
-    frame k - 1's (frame 0's for k < 2), the last the flushed one."""
+    pose) and flush; returns the states: state k is frame k - 1's (frame
+    0's for k < 2), the last the flushed one."""
     vo.initial_pose_fn = lambda image0, image1: (
         frames[1].pose.inv() * frames[0].pose)
-    states, ms = [], []
-    for frame in frames + [None]:
-        sync(device)
-        t0 = time.perf_counter()
-        states.append(vo.estimate(frame) if frame is not None
-                      else vo.flush_map())
-        sync(device)
-        ms.append((time.perf_counter() - t0) * 1e3)
-    return states, ms[:-1], ms[-1]
+    return [vo.estimate(frame) for frame in frames] + [vo.flush_map()]
 
 
-def phase_pipelined(smi):
+def phase_pipelined():
     """PipelinedSemiDenseVO on the card: the CPU-against-card check of
     every state at 120x160 over 5 frames (torch.equal; a missing stream
     wait shows here), then phase 5's 12 frames at 480x640 with
     ssd_search's count at 0 before and read after, gated by
-    PIPELINED_GATES on the flushed last frame, then the pipelined app
-    and SemiDenseVO on those frames in turns.  Returns the launches."""
+    PIPELINED_GATES on the flushed last frame.  Returns the launches."""
     from tadataka_torch.dataset import multi_plane_scene
     from tadataka_torch.vo.semi_dense.sweep import ssd_search
     c = PIPELINED_CHECK
@@ -1478,8 +1365,8 @@ def phase_pipelined(smi):
     frames = [ds[i] for i in range(c["frames"])]
     runs = []
     for device in ("cpu", "cuda"):
-        states, _, _ = run_pipelined(frames, make_pipelined(
-            c["shape"], c["focal"], device), device)
+        states = run_pipelined(frames, make_pipelined(
+            c["shape"], c["focal"], device))
         runs.append([[None if x is None else x.cpu() for x in (
             s.pose_wc.R, s.pose_wc.t, s.depth_map, s.variance_map,
             s.age_map, s.flag_map)] for s in states])
@@ -1495,18 +1382,15 @@ def phase_pipelined(smi):
     frames = [ds[i] for i in range(N_FRAMES)]
     vo = make_pipelined(VGA, VGA_FOCAL, "cuda", metrics=PlanLog())
     ssd_search.launches = 0
-    states, ms, flush_ms = run_pipelined(frames, vo, "cuda")
+    states = run_pipelined(frames, vo)
     launches = ssd_search.launches
     last = states[-1]
     for x in (last.depth_map, last.variance_map, last.pose_wc.t):
         assert bool(torch.isfinite(x).all())
     success, err, cos = depth_and_pose_quality(last, frames[-1])
     paths = [p["plan_path"] for _, p in vo.metrics.frames]
-    steady = ms[3:]
     log("pipelined", f"480x640, {N_FRAMES} frames + flush: plans {paths}; "
-        f"ssd_search launches {launches}; per-frame ms: "
-        + ", ".join(f"{m:.1f}" for m in ms) + f", flush {flush_ms:.1f} "
-        f"({smi})")
+        f"ssd_search launches {launches}")
     log("pipelined", f"last frame (flushed): SUCCESS share {success:.3f} "
         f"(gate > {PIPELINED_GATES['success']:.4f}), median |depth - GT| "
         f"{err:.4f} (< {PIPELINED_GATES['err']:.4f}), cos(t_est, t_gt) "
@@ -1514,88 +1398,37 @@ def phase_pipelined(smi):
     assert paths == ["tent"] * (N_FRAMES - 1), paths
     assert launches == N_FRAMES - 1, launches
     check_gates((success, err, cos), PIPELINED_GATES)
-
-    rounds = {"pipelined": [], "semi_dense": []}
-    for _ in range(2):
-        _, ms, flush_ms = run_pipelined(frames, make_pipelined(
-            VGA, VGA_FOCAL, "cuda"), "cuda")
-        rounds["pipelined"].append(statistics.mean(ms[3:]))
-        vo = make_vo(VGA, VGA_FOCAL, "cuda")
-        _, ms = run_sequence(frames, vo, "cuda")
-        rounds["semi_dense"].append(statistics.mean(ms[3:]))
-    log("pipelined", "steady ms/frame (frames 3-11, mean) in turns, 2 "
-        "rounds: " + ", ".join(
-            f"{name} " + " / ".join(f"{m:.2f}" for m in v)
-            for name, v in rounds.items()) + f" ({smi})")
     return launches
 
 
 UPDATE_INPUTS = {}   # phase -> the inputs of its last frame's update
 
 
-def stage_times(phase, vo, prev, prev_image, refs, frame, device, plan):
-    """Median ms of each stage of one steady-state frame, calling the
-    port's stage functions on that frame's inputs; the update runs the
-    app's plan of that frame (None: the scattered estimator).  Returns the
-    inputs of every ssd_search call of that update, recorded in one
-    untimed call before the timed ones; keeps the update's inputs in
-    UPDATE_INPUTS[phase]."""
+def last_update(phase, vo, prev, prev_image, refs, frame, device, plan):
+    """The update of one steady-state frame made again by the port's
+    stage functions from that frame's inputs, with the app's plan of
+    that frame (None: the scattered estimator).  Keeps the update's
+    inputs in UPDATE_INPUTS[phase] and returns the inputs of every
+    ssd_search call it made."""
     from tadataka_torch.apps.semi_dense_vo import (
         prepare_image, track, propagate_step, update, to_gray_f32)
     from tadataka_torch.core.rounding import matmul_small
     from tadataka_torch.core.transforms import inv_motion_matrix
-    from tadataka_torch.vo.semi_dense import regularize
     image = to_gray_f32(prepare_image(frame, device))
     cam = vo.camera_params
-    ms_track, T10 = timed(device, lambda: track(
-        vo._camera_model, prev_image, prev.depth_map, prev.variance_map,
-        image, vo.n_coarse_to_fine))
-    ms_prop, (d1, v1, age1) = timed(device, lambda: propagate_step(
+    T10 = track(vo._camera_model, prev_image, prev.depth_map,
+                prev.variance_map, image, vo.n_coarse_to_fine)
+    d1, v1, age1 = propagate_step(
         cam, T10, prev.depth_map, prev.variance_map, prev.age_map,
-        vo.default_depth, vo.default_variance, vo.uncertainty_bias))
+        vo.default_depth, vo.default_variance, vo.uncertainty_bias)
     T_wk = matmul_small(prev.pose_wc.T, inv_motion_matrix(T10))
-
-    def update_frame():
-        return update(cam, vo.params, image, T_wk, refs, age1, d1, v1, plan,
-                      False, vo.fuse_prior, vo.n_ref_samples)
-
     UPDATE_INPUTS[phase] = dict(cam=cam, params=vo.params, image=image,
                                 T_wk=T_wk, refs=refs, age=age1, depth=d1,
                                 variance=v1, plan=plan)
-
     with SearchCapture() as capture:
-        update_frame()
-    ms_update, (d2, v2, flags) = timed(device, update_frame)
-    ms_reg, _ = timed(device, lambda: regularize(d2, v2, flags))
-    path = ("scatter" if plan is None
-            else f"{plan.path}, planes {plan.n_planes}")
-    log(phase, f"stages of one {tuple(image.shape)} frame, median of 5: "
-        f"track {ms_track:.2f} ms, propagate {ms_prop:.2f} ms, update "
-        f"{ms_update:.2f} ms ({path}), regularize {ms_reg:.2f} ms")
-    if capture.calls:
-        update_designs(phase, device, update_frame)
+        update(cam, vo.params, image, T_wk, refs, age1, d1, v1, plan, False,
+               vo.fuse_prior, vo.n_ref_samples)
     return capture.calls
-
-
-def update_designs(phase, device, update_frame, rounds=15):
-    """The update of one frame with each design of ssd_search, timed in
-    turns (one call of each a round, after one warm-up call each):
-    logs each design's median and least ms."""
-    from tadataka_torch.vo.semi_dense.sweep import SSD_DESIGNS
-    times = {d: [] for d in SSD_DESIGNS}
-    for r in range(rounds + 1):
-        for d in SSD_DESIGNS:
-            with SearchCapture(design=d, record=False):
-                sync(device)
-                t0 = time.perf_counter()
-                update_frame()
-                sync(device)
-            if r:
-                times[d].append((time.perf_counter() - t0) * 1e3)
-    log(phase, f"update with each ssd_search design, in turns, {rounds} "
-        "rounds: " + ", ".join(
-            f"{d} median {statistics.median(v):.2f} ms (least {min(v):.2f})"
-            for d, v in times.items()))
 
 
 def gather_hard_case(shape, S=None, seed=11):
@@ -1681,20 +1514,17 @@ def phase_gather(floor_gbs):
     count at 0 before them; each kernel bit-equal to its plain version
     (NaN in the same places) on the scripts' inputs there and here on
     the hard case (planted negative, out-of-range and edge indices, 479 x
-    641 and 480 x 640, 20 index rows of H*W), take_along_axis0,
-    multi_warp and flat_take_rows in each of their designs,
-    take_along_axis1 and flat_take and their first kernels (flat_take
-    runs its first kernel at 479 x 641, whose H*W % 4 is not 0, and
-    "band" takes a tail of S*N % 4 = 1 at 480 x 640); then each
+    641, 480 x 640 and 2000 x 9, 20 index rows of H*W), take_along_axis1
+    and flat_take also by their first kernels (flat_take runs its first
+    kernel at 479 x 641, whose H*W % 4 is not 0, and "band" takes a tail
+    of S*N % 4 = 1 at 480 x 640; take_along_axis0 and multi_warp run
+    theirs at 2000 x 9, where a column strip passes 227 KB); then each
     kernel's time beside its plain version's, its library call's, its
-    bound and the card's launch floor (an empty kernel), the designs of
-    take_along_axis0 and multi_warp and take_along_axis1 and flat_take
-    beside their first kernels timed in turns (the last two with their
-    library calls), the SASS of the new kernels (loads, and
-    instructions a slot a band of "band"), and flat_take_rows'
-    beside its first design's time, its other design's and its time on
-    identity indices.  Returns the kernels' JSON entries (each kernel's
-    default design)."""
+    bound and the card's launch floor (an empty kernel), take_along_axis1
+    and flat_take beside their first kernels timed in turns (with their
+    library calls), the SASS of the kernels (loads, and instructions a
+    slot a band of "band"), and flat_take_rows beside torch.take and its
+    time on identity indices.  Returns the kernels' JSON entries."""
     from tadataka_torch.probes import dynamic_gather, flat_gather
     from tadataka_torch.probes import gather as g
     from tadataka_torch.probes.exp_ssd import cuda_ms
@@ -1713,31 +1543,25 @@ def phase_gather(floor_gbs):
     assert all(r["correct"] for r in (*dyn.values(), *flat.values())
                if isinstance(r, dict)), (dyn, flat)
 
-    for shape in ((479, 641), VGA):
+    for shape in ((479, 641), VGA, (2000, 9)):
         img, rows, cols = gather_hard_case(shape)
         fimg, idx = gather_hard_case(shape, S=20)
         checks = {
-            **{f"take_along_axis0/{d}": (
-                g.take_along_axis0(img, rows, design=d),
-                g.take_along_axis_reference(img, rows, 0))
-               for d in g.TAKE_ALONG_AXIS0_DESIGNS},
+            "take_along_axis0": (g.take_along_axis0(img, rows),
+                                 g.take_along_axis_reference(img, rows, 0)),
             "take_along_axis1": (g.take_along_axis1(img, cols),
                                  g.take_along_axis_reference(img, cols, 1)),
             "take_along_axis1/thread": (
                 g.first_kernel(g.take_along_axis1, img, cols),
                 g.take_along_axis_reference(img, cols, 1)),
-            **{f"multi_warp/{d}": (
-                g.multi_warp(img, rows, cols, 16, design=d),
-                g.multi_warp_reference(img, rows, cols, 16))
-               for d in g.MULTI_WARP_DESIGNS},
+            "multi_warp": (g.multi_warp(img, rows, cols, 16),
+                           g.multi_warp_reference(img, rows, cols, 16)),
             "flat_take": (g.flat_take(fimg, idx),
                           g.flat_take_reference(fimg, idx)),
             "flat_take/thread": (g.first_kernel(g.flat_take, fimg, idx),
                                  g.flat_take_reference(fimg, idx)),
-            **{f"flat_take_rows/{d}": (
-                g.flat_take_rows(fimg, idx, design=d),
-                g.flat_take_rows_reference(fimg, idx))
-               for d in g.FLAT_TAKE_ROWS_DESIGNS}}
+            "flat_take_rows": (g.flat_take_rows(fimg, idx),
+                               g.flat_take_rows_reference(fimg, idx))}
         torch.cuda.synchronize()
         nans = {}
         for name, (out, ref) in checks.items():
@@ -1749,8 +1573,8 @@ def phase_gather(floor_gbs):
         log("gather", f"hard case {shape[0]}x{shape[1]} (flat: 20 x "
             f"{shape[0] * shape[1]} indices, and 7 x 1003 for flat_take; "
             f"flat_take runs {'thread' if fimg.numel() % 4 else 'band'}): "
-            "all five bit-equal to their plain versions in every design, "
-            f"NaN in the same places (NaN share {nans})")
+            "all five and both first kernels bit-equal to their plain "
+            f"versions, NaN in the same places (NaN share {nans})")
 
     img, rows, cols = dynamic_gather.probe_inputs()
     fimg, idx = flat_gather.probe_inputs()
@@ -1766,14 +1590,11 @@ def phase_gather(floor_gbs):
         "flat_take_rows": cuda_ms(
             lambda: g.flat_take_rows_reference(fimg, idx))}
     built = g.gather_library()
-    for design in g.MULTI_WARP_DESIGNS:
-        one_warp = cuda_ms(lambda: g.multi_warp(img, rows, cols, 1,
-                                                design=design))
-        ratio = dyn[f"multi_warp/{design}"]["ms"] / one_warp
-        log("gather", f"multi_warp/{design} S=1: {one_warp * 1e3:.2f} us; "
-            f"S={dynamic_gather.S} takes {ratio:.2f}x as long")
-        assert ratio > 3.0, (f"multi_warp ({design}): the gathers were "
-                             "hoisted out of its loop")
+    one_warp = cuda_ms(lambda: g.multi_warp(img, rows, cols, 1))
+    ratio = dyn["multi_warp"]["ms"] / one_warp
+    log("gather", f"multi_warp S=1: {one_warp * 1e3:.2f} us; "
+        f"S={dynamic_gather.S} takes {ratio:.2f}x as long")
+    assert ratio > 3.0, "multi_warp: the gathers were hoisted out of its loop"
     for kernel in ("multi_warp_kernel", "multi_warp_strip_kernel",
                    "take_axis0_kernel", "take_axis0_strip_kernel",
                    "take_axis1_kernel", "take_axis1_row_kernel",
@@ -1787,9 +1608,7 @@ def phase_gather(floor_gbs):
                 f"{sum('LDGSTS' in line for line in body)} of the LDG "
                 "cp.async copies (LDGSTS)")
     clean = {name: cuda_ms(fn, clean=True) for name, fn in (
-        *((f"take_along_axis0/{d}",
-           lambda d=d: g.take_along_axis0(img, rows, design=d))
-          for d in g.TAKE_ALONG_AXIS0_DESIGNS),
+        ("take_along_axis0", lambda: g.take_along_axis0(img, rows)),
         ("torch.gather", lambda: torch.gather(img, 0, rows)),
         ("launch floor", g.empty_launch))}
     log("gather", "with a clean L2 (flushed by a read, no dirty lines to "
@@ -1803,20 +1622,18 @@ def phase_gather(floor_gbs):
         f"{sum('UBLKCP' in line for line in body)} bulk copies (UBLKCP)")
     plane = VGA[0] * VGA[1] * 4
     floor = dyn["launch_floor"]
-    designs = {"take_along_axis0": [f"take_along_axis0/{d}" for d in
-                                    g.TAKE_ALONG_AXIS0_DESIGNS],
+    kernels = {"take_along_axis0": ["take_along_axis0"],
                "take_along_axis1": ["take_along_axis1",
                                     "take_along_axis1/thread"],
-               "multi_warp": [f"multi_warp/{d}" for d in
-                              g.MULTI_WARP_DESIGNS]}
+               "multi_warp": ["multi_warp"]}
     library = {"take_along_axis0": "gather0", "take_along_axis1": "gather1"}
     for name in ("take_along_axis0", "take_along_axis1", "multi_warp"):
         n_bytes = (4 if name == "multi_warp" else 3) * plane
-        bound_ms = bound(n_bytes)[0]
+        bound_ms = 1e3 * bound_s(n_bytes, 0)
         log("gather", f"{name} in turns: " + ", ".join(
                 f"{d} {dyn[d]['ms'] * 1e3:.2f} us (quartiles "
                 + " - ".join(f"{q * 1e3:.2f}" for q in dyn[d]["quartiles"])
-                + ")" for d in designs[name])
+                + ")" for d in kernels[name])
             + f"; plain {plain[name] * 1e3:.2f} us, library "
             + (f"{dyn[library[name]] * 1e3:.2f} us (torch.gather)"
                if name in library else "none")
@@ -1828,18 +1645,16 @@ def phase_gather(floor_gbs):
         + " - ".join(f"{q:.4f}" for q in flat[d]["quartiles"]) + ")"
         for d in ("flat_take", "flat_take/thread"))
         + f", torch.take {flat['take']:.4f} ms; plain "
-        f"{plain['flat_take']:.4f} ms, bound {bound(flat_bytes)[0]:.4f} ms")
+        f"{plain['flat_take']:.4f} ms, bound "
+        f"{1e3 * bound_s(flat_bytes, 0):.4f} ms")
     rows_ms = timed["flat_take_rows"]["ms"]
-    log("gather", f"flat_take_rows ({g.FLAT_TAKE_ROWS_DEFAULT}): "
-        f"{rows_ms:.4f} ms (first design: {FIRST_FLAT_TAKE_ROWS_MS} ms) "
-        f"against torch.take {flat['take']:.4f} ms ("
+    log("gather", f"flat_take_rows: {rows_ms:.4f} ms against torch.take "
+        f"{flat['take']:.4f} ms ("
         f"{'no slower' if rows_ms <= flat['take'] else 'slower'}, "
         f"{rows_ms / flat['take']:.3f}x) and flat_take "
-        f"{timed['flat_take']['ms']:.4f} ms; every design: " + ", ".join(
-            f"{d} {flat['flat_take_rows/' + d]['ms']:.4f} ms"
-            for d in g.FLAT_TAKE_ROWS_DESIGNS)
-        + f"; stream on identity indices {flat['identity']['ms']:.4f} ms, "
-        f"on indices 8 to a 32-byte sector {flat['sector']['ms']:.4f} ms")
+        f"{timed['flat_take']['ms']:.4f} ms; on identity indices "
+        f"{flat['identity']['ms']:.4f} ms, on indices 8 to a 32-byte "
+        f"sector {flat['sector']['ms']:.4f} ms")
     work = {"take_along_axis0": (3 * plane, 0, dyn["gather0"]),
             "take_along_axis1": (3 * plane, 0, dyn["gather1"]),
             "multi_warp": (4 * plane, 2 * dynamic_gather.S * plane // 4,
@@ -1949,10 +1764,9 @@ N_DVO_FRAMES = 8
 
 def phase_dvo(tum_root, device="cuda"):
     """``DvoTrajectory(weights="huber")`` with its defaults on the 8-frame
-    TUM scene, read back through the TUM loader, on the card: ms/frame
-    over the steady frames (3 on), Gauss-Newton iterations per frame (one
-    host sync each), the stages of the last frame, the aligned ATE and
-    the unaligned ATE against the trajectory's extent.  Gated: the
+    TUM scene, read back through the TUM loader, on the card: Gauss-Newton
+    iterations per frame (one host sync each), the aligned ATE and the
+    unaligned ATE against the trajectory's extent.  Gated: the
     unaligned ATE < 0.05 x extent (tests/vo/test_apps.py:41), and the
     aligned ATE within DVO_ATE_MARGIN of JAX_DVO_ATE_M."""
     import tadataka_torch.vo.dvo as dvo
@@ -1969,15 +1783,11 @@ def phase_dvo(tum_root, device="cuda"):
         solves[0] += 1
         return normal_equations(*args)
 
-    ms, iterations = [], []
+    iterations = []
     dvo._normal_equations = counted
     try:
         for frame in frames:
-            sync(device)
-            t0 = time.perf_counter()
             vo.estimate(frame)
-            sync(device)
-            ms.append((time.perf_counter() - t0) * 1e3)
             iterations.append(solves[0])
             solves[0] = 0
     finally:
@@ -1988,14 +1798,9 @@ def phase_dvo(tum_root, device="cuda"):
     ate = float(absolute_trajectory_error(est, gt))
     unaligned = float(absolute_trajectory_error(est, gt, align=False))
     extent = float(np.linalg.norm(gt[-1] - gt[0]))
-    steady = ms[3:]
     log("dvo", f"{tuple(frames[0].depth_map.shape)}, {len(frames)} frames "
-        "of the freiburg1 scene; per-frame ms: "
-        + ", ".join(f"{m:.1f}" for m in ms))
-    log("dvo", f"steady state (frames 3-{len(frames) - 1}): "
-        f"{sum(steady) / len(steady):.2f} ms/frame, "
-        f"{1e3 * len(steady) / sum(steady):.2f} fps; Gauss-Newton "
-        f"iterations per frame (one host sync each): {iterations}")
+        "of the freiburg1 scene; Gauss-Newton iterations per frame (one "
+        f"host sync each): {iterations}")
     log("dvo", f"ATE aligned {ate * 100:.5f} cm (JAX {JAX_DVO_ATE_M * 100:.5f}"
         f" cm), unaligned {unaligned * 100:.5f} cm over an extent of "
         f"{extent:.4f} m ({unaligned / extent:.2e} of it)")
@@ -2003,32 +1808,6 @@ def phase_dvo(tum_root, device="cuda"):
                  DVO_ATE_MARGIN["abs_m"])
     assert unaligned < 0.05 * extent, (unaligned, extent)
     assert abs(ate - JAX_DVO_ATE_M) <= margin, (ate, JAX_DVO_ATE_M, margin)
-    dvo_stage_times(vo, frames[-2], frames[-1])
-
-
-def dvo_stage_times(vo, frame0, frame1):
-    """Median ms of each stage of one DvoTrajectory frame on the card: the
-    host gray conversion and upload, the normalized grids (computed once
-    per shape: the RadTan Newton over 5 levels), the 5-level pyramid,
-    and the pose composition."""
-    from tadataka_torch.core.rounding import matmul_small
-    from tadataka_torch.vo.dvo import estimate_pose_pyramid, normalized_grids
-    e = vo.estimator
-    ms_prepare, (image1, _) = timed(vo.device, lambda: vo._prepare(frame1))
-    image0, depth0 = vo._prepare(frame0)
-    ms_grids, grids = timed(vo.device, lambda: normalized_grids(
-        e.camera_model0, e.n_coarse_to_fine, e.layer_size_ratio,
-        tuple(image0.shape)))
-    ms_track, (R10, t10) = timed(vo.device, lambda: estimate_pose_pyramid(
-        e.camera_model0, e.camera_model0, image0, depth0, image1,
-        torch.ones_like(image0), torch.eye(3, device=image0.device),
-        torch.zeros(3, device=image0.device), e.n_coarse_to_fine,
-        e.max_iter, e.layer_size_ratio, vo.weights, "ic", grids))
-    ms_compose, _ = timed(vo.device,
-                          lambda: matmul_small(vo.pose_wc.R, R10.T))
-    log("dvo", f"stages of the last frame, median of 5: prepare "
-        f"{ms_prepare:.2f} ms, pyramid {ms_track:.2f} ms, compose "
-        f"{ms_compose:.2f} ms; the grids (once per shape) {ms_grids:.2f} ms")
 
 
 # The feature phase's two configurations (bench.py's bench_euroc and
@@ -2057,15 +1836,6 @@ FEATURE_COS = {"synthetic": 0.95}
 # tests/vo/test_feature_based.py's configuration, on its 120x160 sequence
 FEATURE_TEST_VO = dict(window_size=8, min_matches=12, max_keypoints=512,
                        patch_size=24, fast_threshold=0.02)
-# CPU against card (ROADMAP.md's ground rules): the same bits, poses and
-# maps, on EuRoC and on the 120x160 test sequence.  Past matching every
-# factorization runs on the host and every other operation in a fixed
-# order (core/solvers.py, core/rounding.py); the stage-by-stage capture
-# names the first value that parts if they ever do.
-FEATURE_STAGES = ("extract", "match", "PnP + guided", "triangulate", "BA",
-                  "Gauss-Newton")
-
-
 def feature_frames(config):
     """(frames, true positions) of a feature configuration: the EuRoC
     export's left images as float32 / 255, or the multi-plane scene at
@@ -2119,92 +1889,52 @@ def feature_quality(est, gt, R0):
 def drive_feature(frames, device, vo_args, prefetch=False, rng=None,
                   count_syncs=False):
     """One FeatureBasedVO over the frames on ``device``: (vo, poses,
-    per-frame ms, per-frame host syncs, per-frame ``frame_stats``).  With
-    ``prefetch`` each estimate is preceded by the next frame's extraction,
-    as bench_feature_vo does; bench_euroc does not prefetch."""
+    per-frame host syncs, per-frame ``frame_stats``).  With ``prefetch``
+    each estimate is preceded by the next frame's extraction, as
+    bench_feature_vo does; bench_euroc does not prefetch."""
     import warnings
     from tadataka_torch.vo.feature_based import FeatureBasedVO
     vo = FeatureBasedVO(device=device, rng=rng, **vo_args)
     if prefetch:
         vo.prefetch(frames[0])
-    poses, ms, syncs, stats = [], [], [], []
+    poses, syncs, stats = [], [], []
     for k, frame in enumerate(frames):
-        sync(device)
         with warnings.catch_warnings(record=True) as caught:
             if count_syncs:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
-            t0 = time.perf_counter()
             if prefetch and k + 1 < len(frames):
                 vo.prefetch(frames[k + 1])
             poses.append(vo.estimate(frame))
-            sync(device)
-            ms.append((time.perf_counter() - t0) * 1e3)
             if count_syncs:
                 torch.cuda.set_sync_debug_mode("default")
         syncs.append(sum("synchroniz" in str(w.message) for w in caught))
         stats.append(vo.frame_stats)
-    return vo, poses, ms, syncs, stats
+    return vo, poses, syncs, stats
 
 
-def feature_stage_times(config, frames, device, repeats=5):
-    """The median ms of each stage on the last frame (utils/timing.py's
-    marks): the VO before it is copied and the last frame run
-    ``repeats`` times, each stage timed between synchronizations."""
-    import copy
-    from tadataka_torch.utils.timing import record
-    from tadataka_torch.vo.feature_based import FeatureBasedVO
-    vo = FeatureBasedVO(device=device, rng=fixed_draws,
-                        **FEATURE_CONFIGS[config]["vo"])
-    for frame in frames[:-1]:
-        vo.estimate(frame)
-    runs = []
-    for _ in range(repeats + 1):
-        copied = copy.deepcopy(vo)
-        with record() as ms:
-            assert copied.estimate(frames[-1]) is not None
-        runs.append(ms)
-    return {stage: statistics.median(r.get(stage, 0.0) for r in runs[1:])
-            for stage in FEATURE_STAGES}
-
-
-def feature_run_on(config, frames, gt, smi, device="cuda"):
-    """The configuration on ``device`` with its own generator: one round
-    counting host syncs and the PnP kernel's launches, two timed; the
-    quality gates on the last.  Returns the kernel's launches in the
-    first round."""
+def feature_run_on(config, frames, gt, device="cuda"):
+    """The configuration on ``device`` with its own generator, counting
+    host syncs and the PnP kernel's launches; the quality gates.  Returns
+    the kernel's launches."""
     from tadataka_torch.utils.timing import trace
-    args = dict(vo_args=FEATURE_CONFIGS[config]["vo"],
-                prefetch=config == "synthetic")
     with trace() as tr:
-        vo, poses, _, syncs, stats = drive_feature(
-            frames, device, count_syncs=device == "cuda", **args)
+        vo, poses, syncs, stats = drive_feature(
+            frames, device, FEATURE_CONFIGS[config]["vo"],
+            prefetch=config == "synthetic", count_syncs=device == "cuda")
     pnp_launches = pnp_kernel_launches(tr)
-    rounds = []
-    for _ in range(2):
-        vo, poses, ms, _, _ = drive_feature(frames, device, **args)
-        rounds.append(ms)
     assert all(p is not None for p in poses), config
     share, cos, path_cos = feature_quality([p.t.numpy() for p in poses],
                                            gt, frames[0].pose.R.numpy())
-    steady = [statistics.mean(ms[2:]) for ms in rounds]
     keypoints = [st["keypoints"] for st in stats]
     matches = [sum(len(p) for p in st["matches"]) for st in stats]
     inliers = [st["pnp_inliers"] for st in stats]
-    stages = feature_stage_times(config, frames, device)
     shape = tuple(np.asarray(frames[0].image).shape)
     log("feature", f"{config}: {len(frames)} frames at {shape[0]}x"
-        f"{shape[1]}, {FEATURE_CONFIGS[config]['vo']}; steady state "
-        f"(frames 2 on) {steady[0]:.2f} / {steady[1]:.2f} ms/frame in two "
-        f"rounds; per-frame ms of the last: "
-        + ", ".join(f"{m:.1f}" for m in rounds[-1]) + f" ({smi})")
-    log("feature", f"{config}: keypoints per frame {keypoints}, matches "
-        f"kept {matches}, PnP inliers {inliers}, map points "
-        f"{len(vo.point_dict)}, host syncs per frame {syncs}, PnP kernel "
-        f"launches {pnp_launches} (15 a Gauss-Newton)")
-    log("feature", f"{config}: stages of the last frame, median of 5: "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
-        + " (the Gauss-Newton of both PnPs, within PnP + guided)")
+        f"{shape[1]}, {FEATURE_CONFIGS[config]['vo']}; keypoints per frame "
+        f"{keypoints}, matches kept {matches}, PnP inliers {inliers}, map "
+        f"points {len(vo.point_dict)}, host syncs per frame {syncs}, PnP "
+        f"kernel launches {pnp_launches} (15 a Gauss-Newton)")
     ref = JAX_FEATURE_ATE_SHARE[config]
     cos_gate = (f"gate > {FEATURE_COS[config]}" if config in FEATURE_COS
                 else "read, not gated")
@@ -2222,7 +1952,9 @@ def feature_cpu_vs_card(name, frames, vo_args, devices=("cpu", "cuda")):
     draws: the two card runs bit-equal (no atomic sum on the path), each
     frame's extraction and each consecutive pair's matching (mutual-NN
     with the ratio test, and the guided gate) bit-equal on CPU and card,
-    the Matcher's kept matches, every pose and the map bit-equal; the
+    the Matcher's kept matches, every pose and the map bit-equal (past
+    matching every factorization runs on the host and every other
+    operation in a fixed order: core/solvers.py, core/rounding.py); the
     stage-by-stage comparison (``feature_stage_parting``) printed."""
     from tadataka_torch.features.matching import (
         match_descriptors, match_descriptors_guided)
@@ -2257,7 +1989,7 @@ def feature_cpu_vs_card(name, frames, vo_args, devices=("cpu", "cuda")):
     assert all(torch.equal(a, b)
                for a, b in zip(matched[cpu], matched[card])), name
     n_masks = n_differ = 0
-    for a, b in zip(runs[cpu, 0][4], runs[card, 0][4]):
+    for a, b in zip(runs[cpu, 0][3], runs[card, 0][3]):
         for pa, pb in zip(a["matches"], b["matches"]):
             sa, sb = set(map(tuple, pa)), set(map(tuple, pb))
             n_masks += len(sa | sb)
@@ -2357,17 +2089,17 @@ def feature_test_sequence():
         assert share < 0.25 and cos > 0.95, (device, share, cos)
 
 
-def phase_feature(smi):
+def phase_feature():
     """FeatureBasedVO on the card: EuRoC's 480x752 export with
     bench_euroc's setting and the multi-plane scene at 480x640 with
-    bench_feature_vo's, each timed and gated on quality; then EuRoC and
+    bench_feature_vo's, each gated on quality; then EuRoC and
     the reference's 120x160 test sequence on the CPU and the card with
     the same draws.  Returns the PnP kernel's launches in the runs that
     count host syncs."""
     launches = 0
     for config in FEATURE_CONFIGS:
         frames, gt = feature_frames(config)
-        launches += feature_run_on(config, frames, gt, smi)
+        launches += feature_run_on(config, frames, gt)
         if config == "euroc":
             euroc_frames = frames
     feature_cpu_vs_card("euroc", euroc_frames, FEATURE_CONFIGS["euroc"]["vo"])
@@ -2386,8 +2118,6 @@ N_VITAMIN_E_FRAMES = 5
 VITAMIN_E_VO = dict(fast_threshold=0.02, lambda_=0.5)
 VITAMIN_E_TEXTURE = "sharp"
 JAX_VITAMIN_E = dict(ate_share=0.04010, map_points=2062)
-VITAMIN_E_STAGES = ("extract", "flow", "curvature + climb", "new area",
-                    "pose", "triangulate")
 
 
 def vitamin_e_frames(texture=VITAMIN_E_TEXTURE, n=N_VITAMIN_E_FRAMES,
@@ -2412,43 +2142,22 @@ def vitamin_e_frames(texture=VITAMIN_E_TEXTURE, n=N_VITAMIN_E_FRAMES,
 
 def drive_vitamin_e(frames, device, rng=None, count_syncs=False):
     """One VitaminEVO over the frames on ``device``: (vo, poses, per-frame
-    ms, per-frame host syncs)."""
+    host syncs)."""
     import warnings
     from tadataka_torch.vo.vitamin_e import VitaminEVO
     vo = VitaminEVO(frames[0].camera_model, device=device, rng=rng,
                     **VITAMIN_E_VO)
-    poses, ms, syncs = [], [], []
+    poses, syncs = [], []
     for frame in frames:
-        sync(device)
         with warnings.catch_warnings(record=True) as caught:
             if count_syncs:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
-            t0 = time.perf_counter()
             poses.append(vo.estimate(frame.image))
-            sync(device)
-            ms.append((time.perf_counter() - t0) * 1e3)
             if count_syncs:
                 torch.cuda.set_sync_debug_mode("default")
         syncs.append(sum("synchroniz" in str(w.message) for w in caught))
-    return vo, poses, ms, syncs
-
-
-def vitamin_e_stage_times(frames, device="cuda", repeats=5):
-    """The median ms of each stage on the last frame (utils/timing.py's
-    marks), the VO copied before it and the last frame run ``repeats``
-    times."""
-    import copy
-    from tadataka_torch.utils.timing import record
-    vo, _, _, _ = drive_vitamin_e(frames[:-1], device, rng=fixed_draws)
-    runs = []
-    for _ in range(repeats + 1):
-        copied = copy.deepcopy(vo)
-        with record() as ms:
-            assert copied.estimate(frames[-1].image) is not None
-        runs.append(ms)
-    return {stage: statistics.median(r.get(stage, 0.0) for r in runs[1:])
-            for stage in VITAMIN_E_STAGES}
+    return vo, poses, syncs
 
 
 def vitamin_e_cpu_vs_card(frames, devices=("cpu", "cuda")):
@@ -2509,36 +2218,28 @@ def vitamin_e_cpu_vs_card(frames, devices=("cpu", "cuda")):
     assert cards_equal and cpu_equal
 
 
-def phase_vitamin_e(smi):
+def phase_vitamin_e():
     """VitaminEVO at 480x640 on the card: the CPU-card comparison, then a
-    run with the card's own generator gated on the JAX readings, host
-    syncs, the PnP kernel's launches and ms/frame, and the stage times of
-    the last frame.  Returns the kernel's launches in the run that
-    counts host syncs."""
+    run with the card's own generator gated on the JAX readings, its host
+    syncs and the PnP kernel's launches counted.  Returns the kernel's
+    launches."""
     from tadataka_torch.metrics import absolute_trajectory_error
     from tadataka_torch.utils.timing import trace
     frames, gt = vitamin_e_frames()
     vitamin_e_cpu_vs_card(frames)
     with trace() as tr:
-        _, _, _, syncs = drive_vitamin_e(frames, "cuda", count_syncs=True)
+        vo, poses, syncs = drive_vitamin_e(frames, "cuda", count_syncs=True)
     pnp_launches = pnp_kernel_launches(tr)
-    vo, poses, ms, _ = drive_vitamin_e(frames, "cuda")
     assert all(p is not None for p in poses), poses
     est = np.stack([p.t.numpy() for p in poses]).astype(np.float64)
     extent = float(np.linalg.norm(gt[-1] - gt[0]))
     share = float(absolute_trajectory_error(est, gt.astype(np.float64))
                   ) / extent
-    stages = vitamin_e_stage_times(frames)
     log("vitamin_e", f"{len(frames)} frames at {VGA[0]}x{VGA[1]}, focal "
-        f"{VGA_FOCAL}, {VITAMIN_E_TEXTURE} texture, {VITAMIN_E_VO}; "
-        f"steady state (frames 2 on) {statistics.mean(ms[2:]):.2f} "
-        f"ms/frame; per-frame ms: " + ", ".join(f"{m:.1f}" for m in ms)
-        + f" ({smi})")
-    log("vitamin_e", f"tracks per frame {[len(k.ids) for k in vo.keypoints]}"
-        f", map points {len(vo.points)}, host syncs per frame {syncs}, "
-        f"PnP kernel launches by frame {tr.counts['pnp.normal_kernel']}")
-    log("vitamin_e", "stages of the last frame, median of 5: "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+        f"{VGA_FOCAL}, {VITAMIN_E_TEXTURE} texture, {VITAMIN_E_VO}; tracks "
+        f"per frame {[len(k.ids) for k in vo.keypoints]}, map points "
+        f"{len(vo.points)}, host syncs per frame {syncs}, PnP kernel "
+        f"launches by frame {tr.counts['pnp.normal_kernel']}")
     ref = JAX_VITAMIN_E
     log("vitamin_e", f"aligned ATE {share:.5f} of the true extent (gate < "
         f"{FEATURE_ATE_MARGIN} x JAX's {ref['ate_share']}), map "
@@ -2636,7 +2337,7 @@ def parallel_sweep(smi):
     for i, args in enumerate(capture.calls):
         assert tuple(args[0].shape[1:]) == (H, W // n), args[0].shape
         assert all(x.is_contiguous() for x in args)
-        check_designs(f"shard {i}'s search", args)
+        check_search(f"shard {i}'s search", args)
     S = capture.calls[0][0].shape[0]
     ring = ring_config(S, H, W // n)
     timing = time_search("parallel", f"shard 0's search of {n}",
@@ -2646,7 +2347,7 @@ def parallel_sweep(smi):
     log("parallel", f"column-sharded sweep, {n} shards of {H}x{W // n} on "
         f"one card, plan {plan.n_planes}: {launches} ssd_search launches "
         f"(S={S}, ring plan {ring['ring']}: grid {ring['grid']}), every "
-        "shard's search bit-equal to plain in both designs; depth, "
+        "shard's search bit-equal to plain; depth, "
         "variance and flags torch.equal to update_depth_fast + regularize "
         f"on the card and to the sharded call on the CPU ({cpu_s:.1f} s); "
         f"SUCCESS share {success:.3f}; ms per update (CUDA events, in "
@@ -2992,50 +2693,29 @@ LONG_MARGIN = 1.25
 # device memory of the semi-dense apps, whose state has a fixed size:
 # memory_allocated after frame 29 within this of its value after frame 10
 LONG_MEMORY_SLACK = 1 << 20
-LONG_WINDOWS = ((3, 10), (20, 30))       # frames 3-9 and 20-29
 
 
 def frame_loop(frames, step, read=lambda out: out):
-    """``step(frame)`` over the frames on the card, each between
-    synchronizations, host syncs counted by
-    ``torch.cuda.set_sync_debug_mode("warn")``; after each frame, off the
-    clock, memory_allocated is read and then ``read(output)``.  Only the
-    last output is kept, so the loop holds no frame's tensors: (the
-    last output, per-frame ``read`` results, per-frame ms, per-frame host
-    syncs, per-frame memory_allocated)."""
-    import warnings
-    reads, ms, syncs, memory = [], [], [], []
+    """``step(frame)`` over the frames on the card; after each frame,
+    memory_allocated is read and then ``read(output)``.  Only the last
+    output is kept, so the loop holds no frame's tensors: (the last
+    output, per-frame ``read`` results, per-frame memory_allocated)."""
+    reads, memory = [], []
     out = None
     for frame in frames:
         del out
-        sync("cuda")
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                t0 = time.perf_counter()
-                out = step(frame)
-                sync("cuda")
-                ms.append((time.perf_counter() - t0) * 1e3)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        out = step(frame)
         memory.append(torch.cuda.memory_allocated())
         reads.append(read(out))
-    return out, reads, ms, syncs, memory
+    return out, reads, memory
 
 
-def log_long_run(name, ms, syncs, memory, smi):
-    """Prints a drive's ms/frame and host syncs a frame over frames 3-9
-    and 20-29, and memory_allocated after frames 10 and 29; returns
-    that memory's change."""
-    early, late = (statistics.mean(ms[a:b]) for a, b in LONG_WINDOWS)
-    s_early, s_late = (statistics.mean(syncs[a:b]) for a, b in LONG_WINDOWS)
+def memory_growth(name, memory):
+    """Prints memory_allocated after frames 10 and 29 of a drive;
+    returns its change."""
     grown = memory[29] - memory[10]
-    log("long", f"{name}: ms/frame {early:.2f} over frames 3-9, {late:.2f} "
-        f"over frames 20-29; host syncs a frame {s_early:.1f} / "
-        f"{s_late:.1f}; memory_allocated after frame 10 {memory[10]} B, "
-        f"after frame 29 {memory[29]} B ({grown:+d} B) ({smi})")
+    log("long", f"{name}: memory_allocated after frame 10 {memory[10]} B, "
+        f"after frame 29 {memory[29]} B ({grown:+d} B)")
     return grown
 
 
@@ -3058,9 +2738,8 @@ def long_cpu_vs_card(devices=("cpu", "cuda")):
     Returns the ssd_search launches of the card's map upkeep."""
     from tadataka_torch.vo.semi_dense.sweep import ssd_search
     frames = long_sequence()
-    dvo, maps, feature, seconds = {}, {}, {}, {}
+    dvo, maps, feature = {}, {}, {}
     for device in devices:
-        t0 = time.perf_counter()
         dvo[device] = long_dvo(frames, device)[1]
         maps[device] = []
         ssd_search.launches = 0
@@ -3069,8 +2748,6 @@ def long_cpu_vs_card(devices=("cpu", "cuda")):
         launches = ssd_search.launches
         vo, poses = long_feature(frames, device, rng=fixed_draws)
         feature[device] = (poses, vo.point_dict)
-        sync(device)
-        seconds[device] = time.perf_counter() - t0
     cpu, card = devices
     assert all(torch.equal(a.R, b.R.cpu()) and torch.equal(a.t, b.t.cpu())
                for a, b in zip(dvo[cpu], dvo[card])), "DVO poses differ"
@@ -3089,12 +2766,11 @@ def long_cpu_vs_card(devices=("cpu", "cuda")):
         f"variance and flags after each of {len(maps[cpu])} updates "
         f"({launches} ssd_search launches on the card), the feature VO's "
         f"{sum(p is not None for p in poses_g)} poses and map of "
-        f"{len(map_g)} points bit-equal on the CPU and the card; "
-        + ", ".join(f"{d} {t:.1f} s" for d, t in seconds.items()))
+        f"{len(map_g)} points bit-equal on the CPU and the card")
     return launches
 
 
-def long_semi_dense(smi):
+def long_semi_dense():
     """(b) SemiDenseVO and PipelinedSemiDenseVO over 30 frames of phase
     5's scene and settings at 480x640, each with ssd_search's count at 0
     before and read after: finite states, the JAX readings' gates on the
@@ -3113,8 +2789,7 @@ def long_semi_dense(smi):
     vo = make_vo(VGA, VGA_FOCAL, "cuda", metrics=PlanLog())
     vo.initial_pose_fn = lambda image0, image1: bootstrap
     ssd_search.launches = 0
-    last, finite, ms, syncs, memory = frame_loop(frames, vo.estimate,
-                                                 finite_state)
+    last, finite, memory = frame_loop(frames, vo.estimate, finite_state)
     total += ssd_search.launches
     assert all(finite), finite
     plans = Counter(f"{p['plan_path']}/{p['plan_n_planes']}"
@@ -3128,17 +2803,15 @@ def long_semi_dense(smi):
         f"SUCCESS share {quality[0]:.4f}, median |depth - GT| "
         f"{quality[1]:.4f}, cos(t_est, t_gt) {quality[2]:.4f} (gates "
         f"{LONG_SLICE_GATES})")
-    grown = log_long_run("SemiDenseVO", ms, syncs, memory, smi)
+    grown = memory_growth("SemiDenseVO", memory)
     check_gates(quality, LONG_SLICE_GATES)
     assert abs(grown) <= LONG_MEMORY_SLACK, grown
 
     pvo = make_pipelined(VGA, VGA_FOCAL, "cuda", metrics=PlanLog())
     pvo.initial_pose_fn = lambda image0, image1: bootstrap
     ssd_search.launches = 0
-    _, finite, ms, syncs, memory = frame_loop(frames, pvo.estimate,
-                                              finite_state)
+    _, finite, memory = frame_loop(frames, pvo.estimate, finite_state)
     last = pvo.flush_map()
-    sync("cuda")
     total += ssd_search.launches
     assert all(finite) and finite_state(last), finite
     quality = depth_and_pose_quality(last, frames[-1])
@@ -3148,13 +2821,13 @@ def long_semi_dense(smi):
         f"{ssd_search.launches}; flushed last frame: SUCCESS share "
         f"{quality[0]:.4f}, median |depth - GT| {quality[1]:.4f}, "
         f"cos(t_est, t_gt) {quality[2]:.4f} (gates {LONG_PIPELINED_GATES})")
-    grown = log_long_run("PipelinedSemiDenseVO", ms, syncs, memory, smi)
+    grown = memory_growth("PipelinedSemiDenseVO", memory)
     check_gates(quality, LONG_PIPELINED_GATES)
     assert abs(grown) <= LONG_MEMORY_SLACK, grown
     return total
 
 
-def long_dvo_and_feature(smi):
+def long_dvo_and_feature():
     """(b) DvoTrajectory and FeatureBasedVO (its own generator) over the
     long test's 30 poses at 480x640, focal 480 (the feature VO on the
     EuRoC export's texture, as the feature phase): finite poses and map,
@@ -3168,8 +2841,8 @@ def long_dvo_and_feature(smi):
     gt = np.stack([f.pose.t.numpy() for f in frames]).astype(np.float64)
     extent = float(np.linalg.norm(gt[-1] - gt[0]))
     vo = long_dvo_vo(frames, "cuda")
-    _, finite, ms, syncs, memory = frame_loop(
-        frames, vo.estimate, lambda p: all_finite(p.R, p.t))
+    _, finite, memory = frame_loop(frames, vo.estimate,
+                                   lambda p: all_finite(p.R, p.t))
     assert all(finite), finite
     est = vo.positions().astype(np.float64)
     share = float(absolute_trajectory_error(est, gt, align=False)) / extent
@@ -3178,13 +2851,13 @@ def long_dvo_and_feature(smi):
         f"unaligned ATE {share:.6f} of the extent {extent:.4f} (gate < "
         f"{LONG_MARGIN} x JAX's {JAX_LONG['dvo_ate_share']}), RPE {rpe:.6f} "
         f"(gate < {LONG_MARGIN} x JAX's {JAX_LONG['dvo_rpe']})")
-    log_long_run("DvoTrajectory", ms, syncs, memory, smi)
+    memory_growth("DvoTrajectory", memory)
     assert share < LONG_MARGIN * JAX_LONG["dvo_ate_share"], share
     assert rpe < LONG_MARGIN * JAX_LONG["dvo_rpe"], rpe
 
     frames = long_sequence(VGA, VGA_FOCAL, texture=_sharp_texture)
     vo = FeatureBasedVO(device="cuda", **LONG_FEATURE_VO)
-    _, poses, ms, syncs, memory = frame_loop(
+    _, poses, memory = frame_loop(
         frames, vo.estimate,
         lambda p: None if p is None else (p.R.cpu(), p.t.cpu()))
     posed = [k for k, p in enumerate(poses) if p is not None]
@@ -3199,24 +2872,22 @@ def long_dvo_and_feature(smi):
         f"{len(frames) - 2}), aligned ATE {share:.6f} of the extent (gate < "
         f"{LONG_MARGIN} x JAX's {JAX_LONG['feature_ate_share']}), map "
         f"{len(vo.point_dict)} points")
-    log_long_run("FeatureBasedVO", ms, syncs, memory, smi)
+    memory_growth("FeatureBasedVO", memory)
     assert len(posed) >= len(frames) - 2, posed
     assert share < LONG_MARGIN * JAX_LONG["feature_ate_share"], share
 
 
-def phase_long(smi):
+def phase_long():
     """The long phase: tests/vo/test_long_trajectory.py's horizon on the
     card.  (a) its 80x100 sequence on the CPU and the card, bit for bit;
     (b) 30 frames at 480x640 through SemiDenseVO, PipelinedSemiDenseVO,
     DvoTrajectory and FeatureBasedVO, gated on the JAX package's
-    readings, timed early and late, host syncs and device memory read.
-    Returns the ssd_search launches of its main-path drives."""
-    t0 = time.perf_counter()
+    readings, device memory read.  Returns the ssd_search launches of its
+    main-path drives."""
     launches = long_cpu_vs_card()
-    launches += long_semi_dense(smi)
-    long_dvo_and_feature(smi)
-    log("long", f"phase passed in {time.perf_counter() - t0:.1f} s; "
-        f"ssd_search launches {launches}")
+    launches += long_semi_dense()
+    long_dvo_and_feature()
+    log("long", f"phase passed; ssd_search launches {launches}")
     return launches
 
 
@@ -3241,7 +2912,7 @@ def main():
     phase_app_gate()
     phase_stereo(smi)
     phase_euroc(smi)
-    launches += phase_pipelined(smi)
+    launches += phase_pipelined()
     from tadataka_torch.dataset import export_tum_scene
     with tempfile.TemporaryDirectory() as tum_root:
         t_export = time.perf_counter()
@@ -3251,15 +2922,15 @@ def main():
             f"{time.perf_counter() - t_export:.1f} s")
         phase_dvo_cpu_gpu(tum_root)
         phase_dvo(tum_root)
-    pnp_launches = phase_feature(smi)
-    pnp_launches += phase_vitamin_e(smi)
+    pnp_launches = phase_feature()
+    pnp_launches += phase_vitamin_e()
     parallel_launches, _ = phase_parallel(smi)
     launches += parallel_launches
-    launches += phase_long(smi)
+    launches += phase_long()
     at48 = timings[("random", 48, 480, 640)]
     pnp = timings["pnp_normal"]
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s; "
-        "ms/plain_ms below: ssd_search (its ring design) at S=48, the SSD "
+        "ms/plain_ms below: ssd_search (the ring kernel) at S=48, the SSD "
         "probes at S=32, the gather probes on their scripts' inputs, "
         "480x640, pnp_normal at B=1, n=2000; launches: the slice, rect, "
         "pipelined, parallel and long phases (ssd_search), the "
@@ -3270,7 +2941,7 @@ def main():
     print(smi)
     print(json.dumps({"kernels": [kernel_entry(
         "ssd_search", SSD_SOURCE, SSD_REPLACES, launches, 0.0,
-        at48["ms"]["ring"], at48["plain_ms"], at48["n_bytes"],
+        at48["ms"], at48["plain_ms"], at48["n_bytes"],
         at48["flops"])] + probe_entries + gather_entries + [kernel_entry(
             "pnp_normal", PNP_SOURCE, PNP_REPLACES, pnp_launches, 0.0,
             pnp["ms"], pnp["plain_ms"], pnp["n_bytes"], pnp["flops"])]}))

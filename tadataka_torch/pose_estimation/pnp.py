@@ -27,7 +27,7 @@ from tadataka_torch.device import resolve_device, upload
 from tadataka_torch.features.ransac import (
     _sample_valid_indices, default_generator, take_rows, uniform_draws)
 from tadataka_torch.utils.exceptions import NotEnoughInliersException
-from tadataka_torch.utils.timing import count, probe, stage
+from tadataka_torch.utils.timing import count, probe, span
 
 DEFAULT_TRIALS = 128
 MIN_CORRESPONDENCES = 6
@@ -264,7 +264,7 @@ def solve_pnp_ransac(points, keypoints, mask, rng,
     err = _reprojection_errors(R, t, points, keypoints)
     inliers = mask & (err < reprojection_threshold)
     probe(f"RANSAC {site}", inliers=inliers)
-    with stage("Gauss-Newton", points.device):
+    with span("Gauss-Newton"):
         R, t = _refine_gauss_newton(R, t, points, keypoints,
                                     inliers.to(points.dtype), GN_ITERATIONS)
     err = _reprojection_errors(R, t, points, keypoints)

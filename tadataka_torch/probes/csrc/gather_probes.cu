@@ -32,7 +32,7 @@
 //   warp, so all S gather chains must run: each address adds s * stride
 //   with a stride the caller passes at run time (0), which the compiler
 //   cannot prove constant, so it cannot hoist the loads out of the loop.
-//   Two designs:
+//   Two kernels, the launcher choosing by the input:
 //   * "thread" (the first kernel): one thread a pixel.  Each chain reads
 //     idxc[r, j] and img[r, c] at random rows: 2 x 16 x 307200 random
 //     4-byte reads at 480x640, each a 32-byte L2 sector, and the card's
@@ -49,7 +49,7 @@
 //     the chains of a pixel, which read one address while the stride is
 //     0, hit L1, and the time then measures the cache, not S warps.
 // - take_along_axis0 is column-local the same way (out[i, j] = img[idx[i,
-//   j], j]).  Two designs:
+//   j], j]).  Two kernels, the launcher choosing by the input:
 //   * "thread": one thread an element; every image read is a random
 //     32-byte L2 sector (307200 at 480x640), and after an L2 flush the
 //     first reader of a sector waits for device memory.
@@ -82,22 +82,16 @@
 // - flat_take_rows: every index row gathers from the same image, so the
 //   gather is elementwise over the S*N indices taken as one flat array,
 //   and no row needs its own 16-byte head or tail (S*N % 4 elements are
-//   left at the end, done one by one).  Two designs:
-//   * "stream": each thread loads four 16-byte index chunks with an
-//     evict-first hint (__ldcs), so 16 independent gathers are in flight
-//     a thread, reads the image through __ldg (from L1 or L2) and writes
-//     four outputs at a time with streaming stores (__stcs); blocks of
-//     256 threads, several resident on every SM.  Random gathers cost one
-//     32-byte L2 sector each (19.7M at 64 x 307200), and those sectors,
-//     not the 158.5 MB of index and output, set its time.
-//   * "cluster": a cluster of 8 blocks, one per SM, holds the whole image
-//     in shared memory (1/8 of it each, brought in by one bulk copy per
-//     block), and every gather reads the owning block's slice over the
-//     SM-to-SM network (mapa + ld.shared::cluster) instead of from L2.
-//     The image must fit in 8 x 227 KB.  A persistent grid of as many
-//     clusters as fit walks the index chunks.  It is slower than
-//     "stream" on the card and stays as the probe of the SM-to-SM
-//     network's rate for random 4-byte reads.
+//   left at the end, done one by one).  "stream": each thread loads four
+//   16-byte index chunks with an evict-first hint (__ldcs), so 16
+//   independent gathers are in flight a thread, reads the image through
+//   __ldg (from L1 or L2) and writes four outputs at a time with
+//   streaming stores (__stcs); blocks of 256 threads, several resident on
+//   every SM.  Random gathers cost one 32-byte L2 sector each (19.7M at
+//   64 x 307200), and those sectors, not the 158.5 MB of index and
+//   output, set its time.  Holding the image in the shared memory of a
+//   cluster of 8 blocks and gathering over the SM-to-SM network read
+//   slower (PERF.md).
 // - flat_take (take(mode="clip")) is the same gather, clamped.  Two
 //   kernels:
 //   * "thread" (the first): one thread an element, every gather a random
@@ -133,12 +127,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kStreamChunks = 4;      // 16-byte index chunks a thread
-constexpr int kClusterSize = 8;       // blocks holding one image copy
-constexpr int kClusterThreads = 1024;
-constexpr int kClusterChunks = 4;
-constexpr int kClusterHeader = 128;   // the mbarrier, then the slice
 constexpr int kMaxSharedBytes = 232448;   // 227 KB, Hopper's per-block cap
-constexpr int kMaxCopyBytes = 65536;      // one bulk copy's share of a slice
 constexpr int kStrip = 32;            // columns of a "strip" block
 constexpr int kStripThreads = 256;    // threads of a multi_warp block
 constexpr int kStripRows = kStripThreads / kStrip;   // rows a pass
@@ -451,7 +440,7 @@ flat_take_rows_stream_kernel(const float* __restrict__ flat, int HW,
                                                             idx[tail]);
 }
 
-// ----------------------------------------------- flat_take_rows, "cluster"
+// ----------------------------------------------------- flat_take, "band"
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -463,94 +452,6 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
-
-// flat[wrap(i)] from the block of the cluster that holds it, or NaN.  The
-// slices are written once, before the cluster barrier that every read
-// follows (its index comes from a load the barrier orders), so the read
-// is a plain asm the compiler may schedule with the other gathers.
-__device__ __forceinline__ float cluster_take(uint32_t part, int slice,
-                                              int HW, int i) {
-  const bool ok = wrap_index(i, HW);
-  const uint32_t j = ok ? static_cast<uint32_t>(i) : 0u;
-  const uint32_t rank = j / static_cast<uint32_t>(slice);
-  const uint32_t local = part + 4u * (j - rank * static_cast<uint32_t>(slice));
-  uint32_t remote;
-  float v;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;"
-      : "=r"(remote) : "r"(local), "r"(rank));
-  asm("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote));
-  return ok ? v : nan_value();
-}
-
-// Each block of a cluster holds flat[rank * slice, (rank + 1) * slice).
-__global__ void __cluster_dims__(kClusterSize, 1, 1)
-__launch_bounds__(kClusterThreads, 1)
-flat_take_rows_cluster_kernel(const float* __restrict__ flat, int HW,
-                              int slice, const int* __restrict__ idx,
-                              size_t n, float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t bar = shared_addr(smem);
-  const uint32_t part = bar + kClusterHeader;
-  float* mine = reinterpret_cast<float*>(smem + kClusterHeader);
-  const int begin = static_cast<int>(cluster_rank()) * slice;
-  const int len = max(0, min(slice, HW - begin));
-  const int bulk = len & ~3;              // floats in 16-byte multiples
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar), "r"(bulk * 4) : "memory");
-    for (int off = 0; off < bulk * 4; off += kMaxCopyBytes) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];"
-          :: "r"(part + off), "l"(flat + begin + off / 4),
-             "r"(min(kMaxCopyBytes, bulk * 4 - off)), "r"(bar)
-          : "memory");
-    }
-  }
-  if (static_cast<int>(threadIdx.x) < len - bulk)
-    mine[bulk + threadIdx.x] = flat[begin + bulk + threadIdx.x];
-  asm volatile(
-      "{\n .reg .pred done;\n WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], 0;\n"
-      " @!done bra WAIT;\n}" :: "r"(bar) : "memory");
-  cluster_sync();          // every slice of the cluster is in place
-
-  const size_t n4 = n / 4;
-  const int4* idx4 = reinterpret_cast<const int4*>(idx);
-  float4* out4 = reinterpret_cast<float4*>(out);
-  const size_t per_block = static_cast<size_t>(kClusterThreads) *
-                           kClusterChunks;
-  for (size_t b = blockIdx.x; b * per_block < n4; b += gridDim.x) {
-    const size_t base = b * per_block + threadIdx.x;
-    int4 ids[kClusterChunks];
-#pragma unroll
-    for (int k = 0; k < kClusterChunks; ++k) {
-      const size_t p = base + static_cast<size_t>(k) * kClusterThreads;
-      ids[k] = p < n4 ? __ldcs(idx4 + p) : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int k = 0; k < kClusterChunks; ++k) {
-      const size_t p = base + static_cast<size_t>(k) * kClusterThreads;
-      const float4 v = make_float4(cluster_take(part, slice, HW, ids[k].x),
-                                   cluster_take(part, slice, HW, ids[k].y),
-                                   cluster_take(part, slice, HW, ids[k].z),
-                                   cluster_take(part, slice, HW, ids[k].w));
-      if (p < n4) __stcs(out4 + p, v);
-    }
-  }
-  const size_t tail = n4 * 4 + threadIdx.x;
-  if (blockIdx.x == 0 && tail < n)
-    out[tail] = cluster_take(part, slice, HW, idx[tail]);
-  cluster_sync();          // no block leaves while its slice may be read
-}
-
-// ----------------------------------------------------- flat_take, "band"
 
 // Clusters of kBandCluster blocks, one block an SM, on a persistent grid.
 // Every round, each block of a cluster holds one chunk of kBandChunk
@@ -808,12 +709,6 @@ unsigned blocks_for(size_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-// Floats of the image each block of a cluster holds (a multiple of 4, so
-// every slice starts 16-byte aligned).
-int cluster_slice(int HW) {
-  return (HW + 4 * kClusterSize - 1) / (4 * kClusterSize) * 4;
-}
-
 // The SM count of the current device, and every "strip" kernel allowed
 // the 227 KB of shared memory a block may have, done once a device and
 // thread: the attribute and the query cost more host time than a launch.
@@ -1030,53 +925,19 @@ extern "C" int flat_take_band_launch(const float* flat, int HW,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory a block of flat_take_rows' "cluster" design needs for an
-// image of HW floats (0 if 8 blocks cannot hold it).
-extern "C" int flat_take_rows_cluster_bytes(int HW) {
-  const long bytes = kClusterHeader + 4L * cluster_slice(HW);
-  return HW >= 1 && bytes <= kMaxSharedBytes ? static_cast<int>(bytes) : 0;
-}
-
-// design 0: "stream", 1: "cluster".  idx and out must be 16-byte aligned.
+// idx and out must be 16-byte aligned.
 extern "C" int flat_take_rows_launch(const float* flat, int HW,
                                      const int* idx, int S, int N,
-                                     int design, float* out, void* stream) {
-  if (HW < 1 || S < 1 || N < 1 || (design != 0 && design != 1))
+                                     float* out, void* stream) {
+  if (HW < 1 || S < 1 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t n = static_cast<size_t>(S) * N;
   const size_t n4 = n / 4;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (design == 0) {
-    const size_t per_block = static_cast<size_t>(kThreads) * kStreamChunks;
-    const unsigned blocks = static_cast<unsigned>(
-        n4 == 0 ? 1 : (n4 + per_block - 1) / per_block);
-    flat_take_rows_stream_kernel<<<blocks, kThreads, 0, s>>>(flat, HW, idx,
-                                                             n, out);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int bytes = flat_take_rows_cluster_bytes(HW);
-  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t status = cudaFuncSetAttribute(
-      flat_take_rows_cluster_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kClusterSize);
-  config.blockDim = dim3(kClusterThreads);
-  config.dynamicSmemBytes = bytes;
-  config.stream = s;
-  int clusters = 0;
-  status = cudaOccupancyMaxActiveClusters(
-      &clusters, flat_take_rows_cluster_kernel, &config);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t per_cluster = static_cast<size_t>(kClusterSize) *
-                             kClusterThreads * kClusterChunks;
-  size_t needed = (n4 + per_cluster - 1) / per_cluster;
-  if (needed < 1) needed = 1;
-  if (needed > static_cast<size_t>(clusters)) needed = clusters;
-  const unsigned blocks = static_cast<unsigned>(kClusterSize * needed);
-  flat_take_rows_cluster_kernel<<<blocks, kClusterThreads, bytes, s>>>(
-      flat, HW, cluster_slice(HW), idx, n, out);
+  const size_t per_block = static_cast<size_t>(kThreads) * kStreamChunks;
+  const unsigned blocks = static_cast<unsigned>(
+      n4 == 0 ? 1 : (n4 + per_block - 1) / per_block);
+  flat_take_rows_stream_kernel<<<blocks, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      flat, HW, idx, n, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,10 +5,10 @@
 
 runs, at 480x640 on the script's inputs (a uniform image and uniform
 row / column indices from a seeded generator): ``take_along_axis`` along
-rows (in each design) and along columns (with its first kernel, one
-thread an element), the library's ``torch.gather``
-in place of the XLA lines, 16 fused two-pass index warps (in each
-design), and an empty kernel, the card's floor for one launch.  Each
+rows and along columns (with its first kernel, one thread an element),
+the library's ``torch.gather`` in place of the XLA lines, 16 fused
+two-pass index warps, and an empty kernel, the card's floor for one
+launch.  Each
 line gives the time in us (CUDA-event median and quartiles of 20
 rounds, L2 flushed, every function timed once a round in turns) and
 whether the kernel is bit-equal to its plain version.  It needs a CUDA
@@ -22,9 +22,8 @@ import torch
 
 from tadataka_torch.probes.exp_ssd import cuda_times
 from tadataka_torch.probes.gather import (
-    MULTI_WARP_DESIGNS, TAKE_ALONG_AXIS0_DESIGNS, empty_launch, first_kernel,
-    multi_warp, multi_warp_reference, same_bits, take_along_axis0,
-    take_along_axis1, take_along_axis_reference)
+    empty_launch, first_kernel, multi_warp, multi_warp_reference, same_bits,
+    take_along_axis0, take_along_axis1, take_along_axis_reference)
 
 SHAPE = (480, 640)
 S = 16
@@ -44,32 +43,29 @@ def probe_inputs(shape=SHAPE, seed=0):
 
 
 def kernels(img, rows, cols):
-    """{name: (call, plain version's call)} of every kernel and design
-    the probe times; a design's name is "<kernel>/<design>"."""
-    calls = {f"take_along_axis0/{d}": (
-        lambda d=d: take_along_axis0(img, rows, design=d),
-        lambda: take_along_axis_reference(img, rows, 0))
-        for d in TAKE_ALONG_AXIS0_DESIGNS}
-    calls["take_along_axis1"] = (
-        lambda: take_along_axis1(img, cols),
-        lambda: take_along_axis_reference(img, cols, 1))
-    calls["take_along_axis1/thread"] = (
-        lambda: first_kernel(take_along_axis1, img, cols),
-        lambda: take_along_axis_reference(img, cols, 1))
-    calls.update({f"multi_warp/{d}": (
-        lambda d=d: multi_warp(img, rows, cols, S, design=d),
-        lambda: multi_warp_reference(img, rows, cols, S))
-        for d in MULTI_WARP_DESIGNS})
-    return calls
+    """{name: (call, plain version's call)} of every kernel the probe
+    times; "take_along_axis1/thread" is take_along_axis1's first
+    kernel."""
+    return {
+        "take_along_axis0": (
+            lambda: take_along_axis0(img, rows),
+            lambda: take_along_axis_reference(img, rows, 0)),
+        "take_along_axis1": (
+            lambda: take_along_axis1(img, cols),
+            lambda: take_along_axis_reference(img, cols, 1)),
+        "take_along_axis1/thread": (
+            lambda: first_kernel(take_along_axis1, img, cols),
+            lambda: take_along_axis_reference(img, cols, 1)),
+        "multi_warp": (
+            lambda: multi_warp(img, rows, cols, S),
+            lambda: multi_warp_reference(img, rows, cols, S))}
 
 
 def run(shape=SHAPE, log=print, repeats=20):
-    """Check every kernel and design on the card, then time them, both
+    """Check every kernel on the card, then time them, both
     ``torch.gather`` calls and the empty launch in turns; returns
     {name: {"ms", "quartiles", "correct"}} for each name of
-    :func:`kernels`, with "take_along_axis0" and "multi_warp" the
-    default designs' entries, and {"gather0", "gather1", "launch_floor":
-    ms}."""
+    :func:`kernels`, and {"gather0", "gather1", "launch_floor": ms}."""
     img, rows, cols = probe_inputs(shape)
     calls = kernels(img, rows, cols)
     correct = {name: same_bits(fn(), plain())
@@ -92,8 +88,6 @@ def run(shape=SHAPE, log=print, repeats=20):
                                  quartiles=(q1, q3), correct=correct[name])
         else:
             results[name] = statistics.median(ts)
-    for name in ("take_along_axis0", "multi_warp"):
-        results[name] = results[f"{name}/{MULTI_WARP_DESIGNS[0]}"]
     return results
 
 

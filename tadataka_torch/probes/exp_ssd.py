@@ -1,15 +1,17 @@
 """Probes of the SSD window search on the card (counterpart of
 ``benchmarks/exp_ssd.py``): the V-read floor, the serial search and the
-two-pass search, each in two designs ("thread" and "tile" for
-``ssd_serial``, "slab" and "tile" for ``ssd_par``; ``design=``).
+two-pass search, each search with two kernels that its wrapper picks
+from the input ("tile", else "thread" for ``ssd_serial``; "tile", else
+"slab" for ``ssd_par``).
 
     python -m tadataka_torch.probes.exp_ssd
 
 runs them on the card at 480x640 on ``exp_ssd.py``'s inputs (uniform V
 and K from a seeded generator, full window bounds) and prints each
 time in ms, the floor's GB/s at S = 32, 48, 128 and 256 in every
-variant beside ``torch.sum(V, 0)`` (also with a clean L2), the designs
-of both searches timed in turns, the re-score counts of ``ssd_serial``
+variant beside ``torch.sum(V, 0)`` (also with a clean L2), the serial
+"thread" kernel's block shapes where it runs, both searches and
+``ssd_search`` timed in turns, the re-score counts of ``ssd_serial``
 "tile", and the serial-against-par ``max|diff|`` lines.  It needs a
 CUDA device.
 
@@ -43,13 +45,10 @@ COPY_VARIANTS = tuple(("threads", vec, rows) for vec in (1, 4)
 COPY_DEFAULT = ("bulk", 4, 1)
 SERIAL_VARIANTS = tuple((cols, rows) for cols in (1, 2, 4)
                         for rows in (2, 8, 16))
-# the designs of ssd_serial and ssd_par.  ssd_par's default is "tile",
-# the faster of its two at every S measured; ssd_serial's default comes
-# from S (serial_design): "tile" up to SERIAL_TILE_MAX_S planes and
-# "thread" above, the faster of the two there on the probe inputs at
-# 480x640 on the card (PERF.md)
-SERIAL_DESIGNS = ("tile", "thread")
-PAR_DESIGNS = ("tile", "slab")
+# ssd_serial runs "tile" up to SERIAL_TILE_MAX_S planes and "thread"
+# above (serial_design), the faster of the two there on the probe inputs
+# at 480x640 on the card (PERF.md); ssd_par runs "tile", the faster of
+# its two at every S measured, wherever it takes the input
 SERIAL_TILE_MAX_S = 128
 # |a - e| <= FILTER_DELTA for the "tile" serial search's approximate error
 # a of every window it certifies (the bound is derived in
@@ -303,71 +302,61 @@ def tile_config(S, H, W, serial):
                      "blocks_per_sm", "chunks", "chunk_rows"), out))
 
 
-def _check_design(name, design, designs):
-    if design not in designs:
-        raise ValueError(f"{name}: no design {design!r}; one of {designs}")
-
-
 def serial_design(S):
-    """ssd_serial's design at S planes where the caller names none."""
+    """ssd_serial's kernel at S planes where "tile" takes the shape."""
     return "tile" if S <= SERIAL_TILE_MAX_S else "thread"
 
 
 def ssd_serial(V, K, mlo, mhi, cols_per_thread=1, rows_per_block=8,
-               design=None, rescore=None):
+               rescore=None):
     """The serial SSD window search of ``ssd_search`` (same inputs and
-    outputs, bit-equal) in one of two designs (``design``; None takes
-    :func:`serial_design` of V's S planes):
+    outputs, bit-equal), by one of two kernels:
 
-    - "thread": one thread a pixel (``cols_per_thread`` = 1, 2 or 4
-      adjacent columns, blocks of 32 x ``rows_per_block`` threads), the
-      IEEE root and division on every window;
-    - "tile": the planes of a tile of pixels resident in shared memory
-      (TMA loads on a persistent grid); an approximate pass picks the
-      candidate windows (a second approximate sweep finds them where
-      there are several), which alone are scored exactly, and a pixel
-      the filter cannot certify scans all its windows exactly
-      (:func:`ssd_serial_filter_reference` is its plain version).
-      Refuses (ValueError) H * W % 4 != 0 and S > 896 (see
-      :func:`tile_config`); ``rescore``, a (3,) int64 tensor on V's
-      device, gains the windows scored exactly, the pixels that ran the
-      whole exact scan and the pixels with more than one candidate
-      (only "tile" takes it).
+    - "tile", at S <= SERIAL_TILE_MAX_S planes (:func:`serial_design`)
+      where H * W % 4 == 0: the planes of a tile of pixels resident in
+      shared memory (TMA loads on a persistent grid); an approximate
+      pass picks the candidate windows (a second approximate sweep finds
+      them where there are several), which alone are scored exactly, and
+      a pixel the filter cannot certify scans all its windows exactly
+      (:func:`ssd_serial_filter_reference` is its plain version);
+      ``rescore``, a (3,) int64 tensor on V's device, gains the windows
+      scored exactly, the pixels that ran the whole exact scan and the
+      pixels with more than one candidate (given where "thread" runs, it
+      raises);
+    - "thread" on any other input: one thread a pixel
+      (``cols_per_thread`` = 1, 2 or 4 adjacent columns, blocks of 32 x
+      ``rows_per_block`` threads), the IEEE root and division on every
+      window.
 
-    The default follows S alone, as measured on uniform random inputs.
-    Where nearly every window lies within the filter's 3 delta of the
-    least, as in the `tent` search of a camera frame (smooth texture),
-    "tile" scores most windows twice and "thread" is the faster
-    (PERF.md): name it there.
+    The choice follows S, as measured on uniform random inputs.  Where
+    nearly every window lies within the filter's 3 delta of the least,
+    as in the `tent` search of a camera frame (smooth texture), "tile"
+    scores most windows twice and "thread" is the faster (PERF.md).
 
     On CPU tensors "thread" runs ``ssd_serial_reference`` and "tile" the
     plain filter; on the card every input must be contiguous and on the
     16-byte grid."""
     _check_ssd_inputs(V, K, mlo, mhi)
-    if design is None:
-        design = serial_design(V.shape[0])
-    _check_design("ssd_serial", design, SERIAL_DESIGNS)
-    if rescore is not None and (design != "tile" or rescore.dtype !=
-                                torch.int64 or tuple(rescore.shape) != (3,)
+    S, H, W = V.shape
+    tile = serial_design(S) == "tile" and H * W % 4 == 0
+    if rescore is not None and (not tile or rescore.dtype != torch.int64
+                                or tuple(rescore.shape) != (3,)
                                 or rescore.device != V.device):
         raise ValueError('ssd_serial: rescore must be a (3,) int64 tensor '
-                         'on V\'s device, and the design "tile"')
+                         'on V\'s device, and the kernel "tile"')
     if _device_of("ssd_serial", V, K, mlo, mhi) == "cpu":
-        if design == "thread":
+        if not tile:
             return ssd_serial_reference(V, K, mlo, mhi)
         out, counts = ssd_serial_filter_reference(V, K, mlo, mhi)
         if rescore is not None:
             rescore += torch.tensor(counts)
         return out
-    S, H, W = V.shape
     lib = probe_library().lib
-    if design == "tile":
-        tile_config(S, H, W, serial=True)
     out = _search_outputs(V)
     ptrs = (V.data_ptr(), K.data_ptr(), mlo.data_ptr(), mhi.data_ptr())
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if design == "tile":
+        if tile:
             status = lib.ssd_serial_tile_launch(
                 *ptrs, S, H, W, *(x.data_ptr() for x in out),
                 None if rescore is None else rescore.data_ptr(), stream)
@@ -423,34 +412,35 @@ def ssd_par_reference(V, K, mlo, mhi):
     return (torch.where(ec >= _INF, -1, best).to(torch.int32), ec, ep, en)
 
 
-def ssd_par(V, K, mlo, mhi, design=PAR_DESIGNS[0]):
+def ssd_par(V, K, mlo, mhi):
     """The two-pass SSD window search.  Same inputs and outputs as
     ``ssd_search``; the errors are in the rsqrt form of
-    :func:`ssd_par_reference`.  ``design``:
+    :func:`ssd_par_reference`.  Two kernels, bit-equal where both run:
 
-    - "slab": pass 1 writes every window's error to an (M, 128-pixel)
-      slab in shared memory, pass 2 scans it; refuses (ValueError) an S
-      whose slab does not fit in a block's shared memory (S > 458);
-    - "tile": the planes of a tile of pixels resident in shared memory
-      (TMA loads on a persistent grid), the running minimum in registers
-      and the neighbours' errors recomputed from the resident samples;
-      refuses (ValueError) H * W % 4 != 0 and S > 896 (see
-      :func:`tile_config`).
+    - "tile" wherever it takes the input (H * W % 4 == 0 and S <= 896,
+      see :func:`tile_config`): the planes of a tile of pixels resident
+      in shared memory (TMA loads on a persistent grid), the running
+      minimum in registers and the neighbours' errors recomputed from the
+      resident samples;
+    - "slab" on the other inputs: pass 1 writes every window's error to
+      an (M, 128-pixel) slab in shared memory, pass 2 scans it; where
+      the slab does not fit in a block's shared memory either (S > 458)
+      it raises ValueError.
 
-    On CPU tensors both run :func:`ssd_par_reference`."""
-    _check_design("ssd_par", design, PAR_DESIGNS)
+    On CPU tensors it runs :func:`ssd_par_reference`."""
     _check_ssd_inputs(V, K, mlo, mhi)
     if _device_of("ssd_par", V, K, mlo, mhi) == "cpu":
         return ssd_par_reference(V, K, mlo, mhi)
     S, H, W = V.shape
     lib = probe_library().lib
-    if design == "tile":
+    try:
         tile_config(S, H, W, serial=False)
         launch = lib.ssd_par_tile_launch
-    else:
+    except ValueError as refused:
         if lib.ssd_par_shared_bytes(S) == 0:
-            raise ValueError(f"ssd_par: the error slab of S={S} does not "
-                             "fit in a block's shared memory")
+            raise ValueError(f"ssd_par: neither kernel takes S={S} at "
+                             f"{H}x{W}: {refused}; the error slab does "
+                             "not fit in a block's shared memory") from None
         launch = lib.ssd_par_launch
     out = _search_outputs(V)
     with torch.cuda.device(V.device):
@@ -544,18 +534,17 @@ def quartiles(times):
 
 
 def run_probes(planes=PLANES, shape=SHAPE, log=print):
-    """Time every probe variant and ``torch.sum(V, 0)`` at each S on the
-    card, the sum, the float4 floor and the default bulk-copy floor again
-    with a clean L2, and the designs of ssd_serial ("thread" in its
-    fastest variant, "tile") and ssd_par ("slab", "tile") in turns with
-    ``cuda_times``; returns {S: {"floor": {variant: ms}, "serial":
-    {(cols, rows): ms}, "designs": {"ssd_serial thread", "ssd_serial
-    tile", "ssd_par slab", "ssd_par tile": [ms, ...]}, "rescore":
-    (windows scored exactly, pixels that scanned, pixels with more than
-    one candidate) of ssd_serial "tile",
-    "plan": its tile_config, "search": ms, "sum": ms, "clean":
-    {"torch.sum", "threads", "bulk": ms}}} and logs one line per
-    probe."""
+    """Time every copy-floor variant and ``torch.sum(V, 0)`` at each S on
+    the card, the sum, the float4 floor and the default bulk-copy floor
+    again with a clean L2, the serial "thread" kernel in every block
+    shape where ssd_serial runs it, and ssd_serial (its fastest block
+    shape), ssd_par and ssd_search in turns with ``cuda_times``; returns
+    {S: {"floor": {variant: ms}, "serial": {(cols, rows): ms} (empty
+    where "tile" runs), "turns": {"ssd_serial", "ssd_par", "ssd_search":
+    [ms, ...]}, "rescore": (windows scored exactly, pixels that scanned,
+    pixels with more than one candidate) of ssd_serial "tile" or None,
+    "sum": ms, "clean": {"torch.sum", "threads", "bulk": ms}}} and logs
+    one line per probe."""
     H, W = shape
     results = {}
     for S in planes:
@@ -564,21 +553,20 @@ def run_probes(planes=PLANES, shape=SHAPE, log=print):
         floor = {v: cuda_ms(lambda v=v: ssd_copy_floor(args[0], v))
                  for v in COPY_VARIANTS}
         total = cuda_ms(lambda: torch.sum(args[0], 0))
-        serial = {v: cuda_ms(lambda v=v: ssd_serial(*args, *v,
-                                                    design="thread"))
-                  for v in SERIAL_VARIANTS}
-        fastest = min(serial, key=serial.get)
-        designs = cuda_times({
-            "ssd_serial thread": lambda: ssd_serial(*args, *fastest,
-                                                    design="thread"),
-            "ssd_serial tile": lambda: ssd_serial(*args, design="tile"),
-            "ssd_par slab": lambda: ssd_par(*args, design="slab"),
-            "ssd_par tile": lambda: ssd_par(*args, design="tile")})
-        rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
-        ssd_serial(*args, design="tile", rescore=rescore)
-        n_exact, n_scan, n_sweep = rescore.tolist()
-        plan = tile_config(S, H, W, serial=True)
-        search = cuda_ms(lambda: ssd_search(*args))
+        kernel = serial_design(S)
+        serial = {} if kernel == "tile" else {
+            v: cuda_ms(lambda v=v: ssd_serial(*args, *v))
+            for v in SERIAL_VARIANTS}
+        fastest = min(serial, key=serial.get) if serial else ()
+        turns = cuda_times({
+            "ssd_serial": lambda: ssd_serial(*args, *fastest),
+            "ssd_par": lambda: ssd_par(*args),
+            "ssd_search": lambda: ssd_search(*args)})
+        rescore = None
+        if kernel == "tile":
+            counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+            ssd_serial(*args, rescore=counts)
+            rescore = tuple(counts.tolist())
         for v, ms in floor.items():
             log(f"S={S:3d} copy floor {copy_variant_name(v)}: {ms:.4f} ms, "
                 f"{gb / ms:.1f} GB/s")
@@ -597,23 +585,26 @@ def run_probes(planes=PLANES, shape=SHAPE, log=print):
         for (cols, rows), ms in serial.items():
             log(f"S={S:3d} serial thread cols={cols} rows={rows:2d}: "
                 f"{ms:.4f} ms, {gb / ms:.1f} GB/s")
+        plan = tile_config(S, H, W, serial=False)
         log(f"S={S:3d} in turns, 20 rounds, median (quartiles): " + ", ".join(
             "{} {:.4f} ({:.4f}-{:.4f}) ms".format(name, *quartiles(times))
-            for name, times in designs.items())
-            + f"; serial thread is cols, rows = {fastest}, par slab "
-            f"{(S - 4) * 512 / 1024:.1f} KB a block, tile P={plan['tile']} "
-            f"x {plan['blocks_per_sm']} blocks an SM, {plan['chunks']} "
-            f"chunks of {plan['chunk_rows']} planes")
-        log(f"S={S:3d} ssd_serial tile re-scores: {n_exact / (H * W):.3f} "
-            f"exact windows a pixel (of {S - 4}), {n_scan} pixels scanned "
-            f"every window, {n_sweep} swept again for more than one "
-            "candidate")
+            for name, times in turns.items())
+            + f"; ssd_serial runs {kernel}"
+            + (f" (cols, rows = {fastest})" if serial else "")
+            + f", ssd_par tile P={plan['tile']} x {plan['blocks_per_sm']} "
+            f"blocks an SM, {plan['chunks']} chunks of {plan['chunk_rows']} "
+            "planes")
+        if rescore is not None:
+            n_exact, n_scan, n_sweep = rescore
+            log(f"S={S:3d} ssd_serial tile re-scores: "
+                f"{n_exact / (H * W):.3f} exact windows a pixel (of {S - 4})"
+                f", {n_scan} pixels scanned every window, {n_sweep} swept "
+                "again for more than one candidate")
+        search = statistics.median(turns["ssd_search"])
         log(f"S={S:3d} ssd_search: {search:.4f} ms, {gb / search:.1f} GB/s, "
             f"{min(floor.values()) / search:.3f} of the best floor")
-        results[S] = dict(floor=floor, serial=serial, designs=designs,
-                          rescore=(n_exact, n_scan, n_sweep), plan=plan,
-                          search=search,
-                          sum=total, clean=clean)
+        results[S] = dict(floor=floor, serial=serial, turns=turns,
+                          rescore=rescore, sum=total, clean=clean)
     return results
 
 

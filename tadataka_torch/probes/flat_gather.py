@@ -7,11 +7,11 @@ runs, at 480x640 with 64 index rows of 307200 (one sample set per pixel)
 on the script's inputs from a seeded generator: the library's
 ``torch.take`` in place of the XLA line, ``flat_take`` (clip) and its
 first kernel, one thread an element, timed in turns (medians and
-quartiles of 20 rounds), then ``flat_take_rows`` (take_along_axis) in
-each of its designs, the default first, then the "stream" design on identity
-indices (idx[s, n] = n: the same bytes with no random access, the
-gather's achievable floor) and on indices that share a 32-byte sector
-eight at a time (as random, with an eighth of the distinct sectors).  Each line gives the time in ms
+quartiles of 20 rounds), then ``flat_take_rows`` (take_along_axis), also
+on identity indices (idx[s, n] = n: the same bytes with no random
+access, the gather's achievable floor) and on indices that share a
+32-byte sector eight at a time (as random, with an eighth of the
+distinct sectors).  Each line gives the time in ms
 (CUDA-event median, L2 flushed) and whether the kernel is bit-equal to
 its plain version.  It needs a CUDA device.
 """
@@ -23,8 +23,8 @@ import torch
 
 from tadataka_torch.probes.exp_ssd import cuda_ms, cuda_times
 from tadataka_torch.probes.gather import (
-    FLAT_TAKE_ROWS_DEFAULT, FLAT_TAKE_ROWS_DESIGNS, first_kernel, flat_take,
-    flat_take_reference, flat_take_rows, flat_take_rows_reference, same_bits)
+    first_kernel, flat_take, flat_take_reference, flat_take_rows,
+    flat_take_rows_reference, same_bits)
 
 SHAPE = (480, 640)
 S = 64
@@ -58,9 +58,9 @@ def run(shape=SHAPE, log=print):
     """Time and check both kernels and torch.take on the card; returns
     {"take": ms (in turns with flat_take), "flat_take": {"ms",
     "quartiles", "correct"}, "flat_take/thread": ... (its first kernel),
-    "flat_take_rows": ... (the default design), "flat_take_rows/<design>":
-    ... (every design), "identity", "sector": ... ("stream" on identity
-    and sector-sharing indices)}."""
+    "flat_take_rows", "identity", "sector": {"ms", "correct"}
+    (flat_take_rows on the probe's, identity and sector-sharing
+    indices)}."""
     img, idx = probe_inputs(shape)
     flat, idx64 = img.reshape(-1), idx.long()     # torch.take wants int64
     plain = flat_take_reference(img, idx)
@@ -77,23 +77,17 @@ def run(shape=SHAPE, log=print):
                         else ""))
         results[name] = (ms if name == "take" else dict(
             ms=ms, quartiles=(q1, q3), correct=correct[name]))
-    designs = (FLAT_TAKE_ROWS_DEFAULT,) + tuple(
-        d for d in FLAT_TAKE_ROWS_DESIGNS if d != FLAT_TAKE_ROWS_DEFAULT)
-    cases = [
-        (f"flat_take_rows/{d}", f"cuda flat_take_rows {d}", flat_take_rows,
-         idx, dict(design=d), flat_take_rows_reference) for d in designs] + [
-        ("identity", "cuda flat_take_rows stream, idx=n", flat_take_rows,
-         identity_indices(*idx.shape), dict(design="stream"),
-         flat_take_rows_reference),
-        ("sector", "cuda flat_take_rows stream, 8/sector", flat_take_rows,
-         sector_indices(idx), dict(design="stream"),
-         flat_take_rows_reference)]
-    for key, label, fn, index, options, reference in cases:
-        correct = same_bits(fn(img, index, **options), reference(img, index))
-        ms = cuda_ms(lambda: fn(img, index, **options))
+    for key, label, index in (
+            ("flat_take_rows", "cuda flat_take_rows", idx),
+            ("identity", "cuda flat_take_rows, idx=n",
+             identity_indices(*idx.shape)),
+            ("sector", "cuda flat_take_rows, 8/sector",
+             sector_indices(idx))):
+        correct = same_bits(flat_take_rows(img, index),
+                            flat_take_rows_reference(img, index))
+        ms = cuda_ms(lambda: flat_take_rows(img, index))
         log(f"{label:36s}: {ms:8.4f} ms   correct={correct}")
         results[key] = dict(ms=ms, correct=correct)
-    results["flat_take_rows"] = results[f"flat_take_rows/{designs[0]}"]
     return results
 
 

@@ -39,15 +39,12 @@ def gather_library():
                                                     ptr]
         lib.flat_take_launch.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr]
         lib.flat_take_band_launch.argtypes = lib.flat_take_launch.argtypes
-        lib.flat_take_rows_launch.argtypes = [ptr, i32, ptr, i32, i32, i32,
-                                              ptr, ptr]
-        lib.flat_take_rows_cluster_bytes.argtypes = [i32]
+        lib.flat_take_rows_launch.argtypes = lib.flat_take_launch.argtypes
         for fn in (lib.take_along_axis_launch,
                    lib.take_along_axis0_strip_launch, lib.multi_warp_launch,
                    lib.multi_warp_strip_launch, lib.empty_launch,
                    lib.take_along_axis1_row_launch, lib.flat_take_launch,
-                   lib.flat_take_band_launch, lib.flat_take_rows_launch,
-                   lib.flat_take_rows_cluster_bytes):
+                   lib.flat_take_band_launch, lib.flat_take_rows_launch):
             fn.restype = i32
         _library = built
     return _library
@@ -114,23 +111,7 @@ def flat_take_rows_reference(img, idx):
 
 # ------------------------------------------------------------- wrappers
 
-# The designs of take_along_axis0 and multi_warp (csrc/gather_probes.cu),
-# the first the default: "strip" stages a 32-column strip of the
-# column-local operand (img for take_along_axis0, idxc for multi_warp) in
-# a block's shared memory and gathers from there; "thread" is the first
-# kernel, one thread an element gathering from L2.  Where the strip does
-# not fit in a block's shared memory (227 KB) "strip" runs the "thread"
-# kernel.
-MULTI_WARP_DESIGNS = ("strip", "thread")
-TAKE_ALONG_AXIS0_DESIGNS = MULTI_WARP_DESIGNS
-
-
-def _check_design(name, design):
-    if design not in MULTI_WARP_DESIGNS:
-        raise ValueError(f"{name}: no design {design!r}")
-
-
-def _take_along_axis(wrapper, img, idx, axis, design):
+def _take_along_axis(wrapper, img, idx, axis, kernel):
     name = wrapper.__name__
     _check(name, img, idx)
     if idx.shape != img.shape:
@@ -141,11 +122,11 @@ def _take_along_axis(wrapper, img, idx, axis, design):
     out = torch.empty_like(img)
     lib = gather_library().lib
     with torch.cuda.device(img.device):
-        if design == "strip":
+        if kernel == "strip":
             status = lib.take_along_axis0_strip_launch(
                 img.data_ptr(), idx.data_ptr(), H, W, out.data_ptr(),
                 _stream())
-        elif design == "row":
+        elif kernel == "row":
             status = lib.take_along_axis1_row_launch(
                 img.data_ptr(), idx.data_ptr(), H, W, out.data_ptr(),
                 _stream())
@@ -158,12 +139,14 @@ def _take_along_axis(wrapper, img, idx, axis, design):
     return out
 
 
-def take_along_axis0(img, idx, design="strip"):
+def take_along_axis0(img, idx):
     """``take_along_axis(img, idx, axis=0)`` for img (H, W) float32 and
-    idx (H, W) int32: out[i, j] = img[idx[i, j], j].  ``design`` is one
-    of TAKE_ALONG_AXIS0_DESIGNS."""
-    _check_design("take_along_axis0", design)
-    return _take_along_axis(take_along_axis0, img, idx, 0, design)
+    idx (H, W) int32: out[i, j] = img[idx[i, j], j].  On the card a
+    block stages a 32-column strip of img and a band of idx in shared
+    memory and gathers from there; where the strip does not fit in 227 KB
+    (H past 1556 at 640 columns) the first kernel runs, one thread an
+    element gathering from L2."""
+    return _take_along_axis(take_along_axis0, img, idx, 0, "strip")
 
 
 def take_along_axis1(img, idx):
@@ -179,12 +162,13 @@ take_along_axis0.launches = 0
 take_along_axis1.launches = 0
 
 
-def multi_warp(img, idxr, idxc, S=16, design="strip"):
+def multi_warp(img, idxr, idxc, S=16):
     """``k_multi``: S two-pass index warps of img (H, W), accumulated with
     weights 1 .. S.  The kernel runs every warp's gathers (no hoisting);
-    idxr and idxc are (H, W) int32.  ``design`` is one of
-    MULTI_WARP_DESIGNS."""
-    _check_design("multi_warp", design)
+    idxr and idxc are (H, W) int32.  On the card a block stages a
+    32-column strip of idxc in shared memory; where the strip does not
+    fit in 227 KB (H past 1816) the first kernel runs, one thread a
+    pixel."""
     _check("multi_warp", img, idxr, idxc)
     if idxr.shape != img.shape or idxc.shape != img.shape or S < 0:
         raise ValueError("multi_warp wants idxr and idxc of img's shape and "
@@ -193,9 +177,7 @@ def multi_warp(img, idxr, idxc, S=16, design="strip"):
         return multi_warp_reference(img, idxr, idxc, S)
     H, W = img.shape
     out = torch.empty_like(img)
-    lib = gather_library().lib
-    launch = (lib.multi_warp_strip_launch if design == "strip"
-              else lib.multi_warp_launch)
+    launch = gather_library().lib.multi_warp_strip_launch
     with torch.cuda.device(img.device):
         # stride 0: every warp's gathers run, at the same addresses
         _launch("multi_warp", launch(
@@ -208,7 +190,7 @@ def multi_warp(img, idxr, idxc, S=16, design="strip"):
 multi_warp.launches = 0
 
 
-def _flat(wrapper, img, idx, reference, launch_name, *options):
+def _flat(wrapper, img, idx, reference, launch_name):
     name = wrapper.__name__
     _check(name, img, idx)
     if idx.dim() != 2:
@@ -220,7 +202,7 @@ def _flat(wrapper, img, idx, reference, launch_name, *options):
     launch = getattr(gather_library().lib, launch_name)
     with torch.cuda.device(img.device):
         _launch(name, launch(img.data_ptr(), img.numel(), idx.data_ptr(), S,
-                             N, *options, out.data_ptr(), _stream()))
+                             N, out.data_ptr(), _stream()))
     wrapper.launches += 1
     return out
 
@@ -250,29 +232,13 @@ def first_kernel(wrapper, img, idx):
     raise ValueError(f"first_kernel: not for {wrapper.__name__}")
 
 
-# flat_take_rows' designs (csrc/gather_probes.cu): "stream" gathers from
-# L2, 16 gathers in flight a thread; "cluster" from an image copy held in
-# the shared memory of a cluster of 8 blocks
-FLAT_TAKE_ROWS_DESIGNS = ("stream", "cluster")
-FLAT_TAKE_ROWS_DEFAULT = "stream"
-
-
-def flat_take_rows(img, idx, design=FLAT_TAKE_ROWS_DEFAULT):
+def flat_take_rows(img, idx):
     """``kernel_taa``: the gather of :func:`flat_take` through
-    take_along_axis (wrap and NaN), elementwise over the S*N indices.
-    ``design`` is one of FLAT_TAKE_ROWS_DESIGNS; "cluster" refuses an
-    image larger than a cluster's shared memory (8 x 227 KB)."""
-    if design not in FLAT_TAKE_ROWS_DESIGNS:
-        raise ValueError(f"flat_take_rows: no design {design!r}")
-    if (design == "cluster" and img.device.type == "cuda"
-            and gather_library().lib.flat_take_rows_cluster_bytes(
-                img.numel()) == 0):
-        raise ValueError(f"flat_take_rows(design='cluster'): an image of "
-                         f"{img.numel()} floats does not fit in the shared "
-                         "memory of a cluster of 8 blocks (8 x 227 KB)")
+    take_along_axis (wrap and NaN), elementwise over the S*N indices.  On
+    the card each thread keeps 16 gathers in flight, reading the image
+    from L2 (csrc/gather_probes.cu)."""
     return _flat(flat_take_rows, img, idx, flat_take_rows_reference,
-                 "flat_take_rows_launch",
-                 FLAT_TAKE_ROWS_DESIGNS.index(design))
+                 "flat_take_rows_launch")
 
 
 flat_take.launches = 0

@@ -1,4 +1,4 @@
-"""The shapes of ``ssd_search``'s ring design on the card, and the SSD
+"""The shapes of ``ssd_search``'s ring kernel on the card, and the SSD
 search's hard inputs.
 
     python -m tadataka_torch.probes.ssd_ring
@@ -7,10 +7,9 @@ builds ``csrc/ssd_search.cu`` once for every shape of ``RING_SHAPES``
 (consumer threads, planes a stage, ring stages, blocks an SM at most:
 the source's SSD_RING_* macros, all builds started together), times
 each at 480x640 on random stacks of 48 planes with every window allowed
-and on a rect plan's stack of 208 planes, beside the "thread" design
-and the package's own build, checks each launch bit-equal to the
-"thread" design, and prints each shape's launch plan (tile size, grid,
-shared memory).  It needs a CUDA device.  The launches go through the
+and on a rect plan's stack of 208 planes, beside the package's own
+build, checks each launch bit-equal to the plain version, and prints
+each shape's launch plan (tile size, grid, shared memory).  It needs a CUDA device.  The launches go through the
 launchers directly, so ``ssd_search.launches`` does not count them.
 """
 
@@ -22,7 +21,8 @@ import torch
 
 from tadataka_torch.probes.exp_ssd import cuda_times, probe_inputs
 from tadataka_torch.vo.semi_dense.sweep import (
-    _SSD_SOURCE, _launch, bind_ssd_library, ring_config, ssd_library)
+    _SSD_SOURCE, _launch, bind_ssd_library, ring_config, ssd_library,
+    ssd_search_reference)
 
 SHAPE = (480, 640)
 RING_SHAPES = (
@@ -130,11 +130,11 @@ def rect_inputs(S, H, W, seed):
 
 
 def run(shape=SHAPE, log=print):
-    """Time the ring in every shape of RING_SHAPES, the package's build
-    ("default") and the "thread" design on the two inputs, in turns
-    (``cuda_times``: a drift of the card reaches all alike); returns
-    {case: {name: median ms}} and raises if a launch is not bit-equal to
-    the "thread" design or a build has another shape than asked."""
+    """Time the ring in every shape of RING_SHAPES and the package's build
+    ("default") on the two inputs, in turns (``cuda_times``: a drift of
+    the card reaches all alike); returns {case: {name: median ms}} and
+    raises if a launch is not bit-equal to the plain version or a build
+    has another shape than asked."""
     H, W = shape
     libraries = shape_libraries()
     libraries["default"] = ssd_library()
@@ -143,29 +143,27 @@ def run(shape=SHAPE, log=print):
     results = {}
     for name, args in cases.items():
         S = args[0].shape[0]
-        thread = _launch("thread", *args)
+        plain = ssd_search_reference(*args)
         plans = {k: ring_config(S, H, W, lib) for k, lib in libraries.items()}
         for k, plan in plans.items():
             assert k == "default" or plan["shape"] == k, (k, plan)
-            out = _launch("ring", *args, library=libraries[k])
+            out = _launch(*args, library=libraries[k])
             torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(out, thread)):
-                raise AssertionError(f"ring {k} differs from the thread "
-                                     f"design on {name}")
-        fns = {"thread": lambda: _launch("thread", *args)}
-        fns.update({k: lambda lib=lib: _launch("ring", *args, library=lib)
-                    for k, lib in libraries.items()})
-        times = cuda_times(fns)
+            if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+                raise AssertionError(f"ring {k} differs from the plain "
+                                     f"version on {name}")
+        times = cuda_times({k: lambda lib=lib: _launch(*args, library=lib)
+                            for k, lib in libraries.items()})
         ms = {k: statistics.median(v) for k, v in times.items()}
         for k, plan in plans.items():
             q1, q3 = statistics.quantiles(times[k], n=4)[::2]
             log(f"{name} ring {plan['shape']}"
                 f"{' (default)' if k == 'default' else ''}: {ms[k]:.4f} ms "
-                f"(quartiles {q1:.4f}-{q3:.4f}; thread {ms['thread']:.4f}); "
+                f"(quartiles {q1:.4f}-{q3:.4f}); "
                 f"tile {plan['tile']} px, {plan['tiles']} tiles on a grid of "
                 f"{plan['grid']} ({plan['blocks_per_sm']} an SM, "
                 f"{plan['threads']} threads, {plan['shared_bytes']} B "
-                "shared); bit-equal to thread")
+                "shared); bit-equal to plain")
         best = min(RING_SHAPES, key=ms.get)
         log(f"{name}: fastest ring shape {best} {ms[best]:.4f} ms; the "
             f"default {plans['default']['shape']} {ms['default']:.4f} ms")

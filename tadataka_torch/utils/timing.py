@@ -1,5 +1,5 @@
-"""Spans and counters of the program's work, wall time of named stages,
-and the values stages produce, for measurement scripts.
+"""Spans and counters of the program's work, and the values stages
+produce, for measurement scripts.
 
 Code marks a region with ``with span(name):``, a blocking
 transfer between host and card with ``with sync_point(name):`` and an
@@ -24,14 +24,6 @@ filed under that frame.  ``sync_point`` is a span and a count of one
 name, around a device-to-host read or a pageable host-to-device copy:
 each pass through it is one host synchronization on a card.
 
-``stage(name, device)`` is a span.  Inside a ``record()`` block it also
-synchronizes its device at both ends and adds its milliseconds to the
-block's dict under ``name``::
-
-    with record() as ms:
-        vo.estimate(frame)
-    ms   # {"extract": ..., "match": ..., ...}
-
 Code marks a stage's outputs with ``probe(stage, name=value, ...)``.
 That costs one check while no ``capture()`` block is open; inside it,
 each value is copied to the host and appended to the block's list as
@@ -52,10 +44,9 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-_trace = None    # the open trace() or record() block (a Trace)
+_trace = None    # the open trace() block (a Trace)
 _values = None   # the open capture() block's list
 _stages = None   # the stages it keeps (None: all)
-
 
 
 class _Noop:
@@ -87,39 +78,30 @@ class Span:
         self.level = level
         self.t0_ns = self.t1_ns = None
 
-    @property
-    def ms(self):
-        return (self.t1_ns - self.t0_ns) * 1e-6
-
 
 class Trace:
-    """The spans and counts of an open block.  ``ms``: the {stage: ms}
-    dict of a ``record()`` block (stages synchronize), else None."""
+    """The spans and counts of an open block."""
 
-    def __init__(self, ms=None):
+    def __init__(self):
         self.spans = []
         self.counts = {}      # name -> {frame: n}
         self.frame = None     # the frame in flight
-        self.ms = ms
         self._stack = []      # indices of the open spans, innermost last
 
 
 class _Open:
-    """A span of an open block, as a context manager; ``device``: a
-    stage's device, synchronized at both ends inside ``record()``."""
+    """A span of an open block, as a context manager."""
 
-    __slots__ = ("trace", "name", "frame", "level", "device", "span",
-                 "annotation", "outer_frame")
+    __slots__ = ("trace", "name", "frame", "level", "span", "annotation",
+                 "outer_frame")
 
-    def __init__(self, trace, name, frame=None, level=None, device=None):
-        self.trace, self.name, self.device = trace, name, device
+    def __init__(self, trace, name, frame=None, level=None):
+        self.trace, self.name = trace, name
         self.frame, self.level = frame, level
         self.span = self.annotation = self.outer_frame = None
 
     def __enter__(self):
         t = self.trace
-        if self.device is not None and t.ms is not None:
-            _sync(self.device)
         s = self.span = Span(
             self.name, t.frame if self.frame is None else self.frame,
             t._stack[-1] if t._stack else None, self.level)
@@ -134,15 +116,11 @@ class _Open:
 
     def __exit__(self, *exc):
         t, s = self.trace, self.span
-        if self.device is not None and t.ms is not None:
-            _sync(self.device)
         s.t1_ns = time.perf_counter_ns()
         if self.annotation is not None:
             self.annotation.__exit__(None, None, None)
         t._stack.pop()
         t.frame = self.outer_frame
-        if self.device is not None and t.ms is not None:
-            t.ms[s.name] = t.ms.get(s.name, 0.0) + s.ms
         return False
 
 
@@ -179,44 +157,22 @@ def sync_point(name, n=1):
     return _Open(t, name)
 
 
-def stage(name, device):
-    """A span; inside a ``record()`` block it synchronizes ``device`` at
-    both ends and adds its ms to the block's dict."""
-    t = _trace
-    if t is None:
-        return _NOOP
-    return _Open(t, name, device=device)
-
-
 def tracing():
-    """Whether a ``trace()`` or ``record()`` block is open."""
+    """Whether a ``trace()`` block is open."""
     return _trace is not None
-
-
-@contextmanager
-def _open_block(block):
-    global _trace
-    outer, _trace = _trace, block
-    try:
-        yield block
-    finally:
-        _trace = outer
 
 
 @contextmanager
 def trace():
     """A :class:`Trace` of the spans and counts run inside the block;
     nothing synchronizes."""
-    with _open_block(Trace()) as block:
+    global _trace
+    block = Trace()
+    outer, _trace = _trace, block
+    try:
         yield block
-
-
-@contextmanager
-def record():
-    """A dict of {stage: ms} of the stages run inside the block, each
-    timed between two synchronizations of its device."""
-    with _open_block(Trace(ms={})) as block:
-        yield block.ms
+    finally:
+        _trace = outer
 
 
 @contextmanager
@@ -240,8 +196,3 @@ def probe(stage, **values):
         if isinstance(value, torch.Tensor):
             value = value.detach().cpu().numpy()
         _values.append((stage, name, np.asarray(value)))
-
-
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)

@@ -51,7 +51,7 @@ from tadataka_torch.pose_estimation.pnp import (
     solve_pnp_packed, solve_pnp_ransac)
 from tadataka_torch.utils.exceptions import (
     NotEnoughInliersException, print_error)
-from tadataka_torch.utils.timing import probe, stage
+from tadataka_torch.utils.timing import probe, span
 
 
 def _pose_from_flat(flat):
@@ -212,7 +212,7 @@ class FeatureBasedVO:
 
     def add(self, camera_model, image, min_keypoints=8, extracted=None):
         image = host(image)
-        with stage("extract", self.device):
+        with span("extract"):
             feats, keypoints_px, normalized, normalized_dev, n_valid = (
                 extracted if extracted is not None
                 else self._extract(camera_model, image))
@@ -260,7 +260,7 @@ class FeatureBasedVO:
         self.active_viewpoints.append(viewpoint1)
 
         if len(self.active_viewpoints) >= 3:
-            with stage("BA", self.device):
+            with span("BA"):
                 self.run_ba(self.active_viewpoints)
         return viewpoint1
 
@@ -268,15 +268,15 @@ class FeatureBasedVO:
         if len(self.active_viewpoints) == 1:
             return self._init_first_two(features1, self.active_viewpoints[0])
 
-        with stage("match", self.device):
+        with span("match"):
             pairs, viewpoints = self._match(features1,
                                             self.active_viewpoints)
-        with stage("PnP + guided", self.device):
+        with span("PnP + guided"):
             pose1 = self._solve_pnp(viewpoints, pairs)
             guided_assoc = {}
             if self.guided_radius is not None:
                 pose1, guided_assoc = self._guided_localize(features1, pose1)
-        with stage("triangulate", self.device):
+        with span("triangulate"):
             pose1, new_points, corr_updates, correspondence1 = \
                 self._triangulate_new(viewpoints, pairs, pose1)
         # the guided associations that triangulation left free

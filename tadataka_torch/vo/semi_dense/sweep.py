@@ -183,19 +183,15 @@ def ssd_window_bounds(mlo, mhi, S):
 _SSD_SOURCE = Path(__file__).parent / "csrc" / "ssd_search.cu"
 _ssd_library = None
 
-SSD_DESIGNS = ("ring", "thread")
-
 
 def bind_ssd_library(built):
     """Declare the C signatures of a built ``csrc/ssd_search.cu``."""
     import ctypes
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     launch = [ptr] * 4 + [i32] * 3 + [ptr] * 5
-    built.lib.ssd_search_launch.argtypes = launch
     built.lib.ssd_search_ring_launch.argtypes = launch
     built.lib.ssd_search_ring_config.argtypes = [i32] * 3 + [ptr]
-    for fn in (built.lib.ssd_search_launch,
-               built.lib.ssd_search_ring_launch,
+    for fn in (built.lib.ssd_search_ring_launch,
                built.lib.ssd_search_ring_config):
         fn.restype = i32
     return built
@@ -231,14 +227,12 @@ def ring_config(S, H, W, library=None):
     return plan
 
 
-def _launch(design, V, K, mlo, mhi, library=None):
-    """Launch one design's kernel on the current stream (``library``: as
-    in :func:`ring_config`); returns its outputs and raises if the launch
+def _launch(V, K, mlo, mhi, library=None):
+    """Launch the search on the current stream (``library``: as in
+    :func:`ring_config`); returns its outputs and raises if the launch
     failed."""
     S, H, W = V.shape
-    lib = (library or ssd_library()).lib
-    fn = lib.ssd_search_ring_launch if design == "ring" else \
-        lib.ssd_search_launch
+    fn = (library or ssd_library()).lib.ssd_search_ring_launch
     best = torch.empty((H, W), dtype=torch.int32, device=V.device)
     ec, ep, en = (torch.empty((H, W), dtype=torch.float32, device=V.device)
                   for _ in range(3))
@@ -248,30 +242,27 @@ def _launch(design, V, K, mlo, mhi, library=None):
                     mhi.data_ptr(), S, H, W, best.data_ptr(), ec.data_ptr(),
                     ep.data_ptr(), en.data_ptr(), stream)
     if status != 0:
-        raise RuntimeError(f"ssd_search kernel launch failed ({design}): "
-                           f"CUDA error {status}")
+        raise RuntimeError(f"ssd_search kernel launch failed: CUDA error "
+                           f"{status}")
     return best, ec, ep, en
 
 
-def ssd_search(V, K, mlo, mhi, design="ring"):
+def ssd_search(V, K, mlo, mhi):
     """Masked normalized-SSD window search over the plane volume.
 
     V (S,H,W) float32 with -1 = invalid sample, K (5,H,W) key patch,
     mlo/mhi (H,W) valid window bounds.  Returns (best (H,W) int32, -1 =
     no valid window; err_center, err_prev, err_next (H,W) float32).
 
-    A CUDA tensor launches the hand-written kernel (csrc/ssd_search.cu)
-    of ``design``: "ring" (the default: a persistent grid streaming only
-    the planes each tile's bounds allow through a shared-memory ring of
-    TMA copies) or "thread" (one thread per pixel over every plane); both
-    give the same bits.  A tensor map needs H*W % 4 == 0 and inputs on
-    the 16-byte grid, so "ring" runs the "thread" kernel on other inputs.
+    A CUDA tensor launches the hand-written kernel (csrc/ssd_search.cu):
+    a persistent grid streaming only the planes each tile's bounds allow
+    through a shared-memory ring of TMA copies.  A tensor map needs H*W
+    % 4 == 0 and inputs on the 16-byte grid; on other inputs the launcher
+    runs the first kernel, one thread per pixel over every plane, which
+    gives the same bits (:func:`ring_config` says which a shape takes).
     A CPU tensor runs :func:`ssd_search_reference`.  No fallback: any
-    other input, design or failed launch raises.
+    other input or a failed launch raises.
     """
-    if design not in SSD_DESIGNS:
-        raise ValueError(f"ssd_search: no design {design!r}; one of "
-                         f"{SSD_DESIGNS}")
     _check_ssd_inputs(V, K, mlo, mhi)
     if V.device.type == "cpu":
         return ssd_search_reference(V, K, mlo, mhi)
@@ -280,7 +271,7 @@ def ssd_search(V, K, mlo, mhi, design="ring"):
     for name, x in (("V", V), ("K", K), ("mlo", mlo), ("mhi", mhi)):
         if not x.is_contiguous():
             raise ValueError(f"ssd_search: {name} must be contiguous")
-    out = _launch(design, V, K, mlo, mhi)
+    out = _launch(V, K, mlo, mhi)
     ssd_search.launches += 1
     return out
 

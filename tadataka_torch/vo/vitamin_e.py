@@ -61,8 +61,7 @@ from tadataka_torch.pose_estimation.epipolar import estimate_pose_change
 from tadataka_torch.pose_estimation.pnp import solve_pnp_packed
 from tadataka_torch.utils.exceptions import (
     NotEnoughInliersException, print_error)
-from tadataka_torch.utils.timing import (
-    count, probe, span, stage, sync_point)
+from tadataka_torch.utils.timing import count, probe, span, sync_point
 
 
 class KeypointFrame(NamedTuple):
@@ -128,13 +127,13 @@ class Tracker:
 
     def __call__(self, keypoints0: KeypointFrame) -> KeypointFrame:
         device = self.image1.device
-        with stage("curvature + climb", device):
+        with span("curvature + climb"):
             curvature = compute_image_curvature(self.image1)
             tracker = ExtremaTracker(curvature, self.lambda_)
             coords0 = upload(keypoints0.coords, device)
             corrected = tracker.optimize(self.flow01(coords0))
             in_range = is_in_image_range(corrected, self.image1.shape)
-        with stage("new area", device):
+        with span("new area"):
             new_kps, keep = _new_area(curvature, self.flow01, 98.0, 2048)
         n = len(corrected)
         packed = torch.cat([
@@ -317,7 +316,7 @@ class VitaminEVO:
             image = rgb2gray(image)
         image = upload(np.asarray(image, np.float32), self.device)
 
-        with stage("extract", self.device):
+        with span("extract"):
             feats = extract_features(image, max_keypoints=self.max_keypoints,
                                      threshold=self.fast_threshold,
                                      patch_size=self.patch_size)
@@ -332,12 +331,12 @@ class VitaminEVO:
             return Pose.identity()
 
         k = len(self.poses_cw)
-        with stage("flow", self.device):
+        with span("flow"):
             flow01 = estimate_flow(self._features, feats, self.matcher)
         probe("flow", matrix=flow01.matrix)
         kp1 = Tracker(flow01, image, self.lambda_)(self.keypoints[-1])
 
-        with stage("pose", self.device):
+        with span("pose"):
             if k == 1:
                 pose_cw = self._bootstrap(kp1)
             else:
@@ -349,7 +348,7 @@ class VitaminEVO:
         self.keypoints.append(kp1)
         self._features = feats
         self._record_first_obs(k, kp1)
-        with stage("triangulate", self.device):
+        with span("triangulate"):
             self._triangulate_new(k, kp1)
         return pose_cw.inv()
 

@@ -223,9 +223,9 @@ def test_feature_based_vo_exports(sequence):
 
 def test_frame_stats_and_stage_marks(sequence):
     """``frame_stats`` reads each frame's valid keypoints, kept matches and
-    PnP inliers; inside ``timing.record()`` every marked stage reports a
-    time, outside it none is kept."""
-    from tadataka_torch.utils.timing import record
+    PnP inliers; inside ``timing.trace()`` every marked stage is a span
+    (``Gauss-Newton`` under ``PnP + guided``), outside it none is kept."""
+    from tadataka_torch.utils.timing import trace
     vo = FeatureBasedVO(device="cpu", **CONFIG)
     vo.estimate(sequence[0])
     assert vo.frame_stats == dict(keypoints=int(vo.features[0].mask.sum()),
@@ -233,17 +233,20 @@ def test_frame_stats_and_stage_marks(sequence):
     vo.estimate(sequence[1])
     assert vo.frame_stats["pnp_inliers"] == 0
     assert sum(len(m) for m in vo.frame_stats["matches"]) >= 12
-    with record() as ms:
+    with trace() as t:
         vo.estimate(sequence[2])
     n = sum(len(m) for m in vo.frame_stats["matches"])
     assert 0 < vo.frame_stats["pnp_inliers"] <= n
-    assert set(ms) == {"extract", "match", "PnP + guided", "triangulate",
-                       "BA", "Gauss-Newton"}
-    assert all(t > 0.0 for t in ms.values())
-    assert ms["Gauss-Newton"] < ms["PnP + guided"]
-    before = dict(ms)
+    stages = [s for s in t.spans if not s.name.startswith("sync.")]
+    assert {s.name for s in stages} == {
+        "extract", "match", "PnP + guided", "triangulate", "BA",
+        "Gauss-Newton"}
+    assert all(s.t1_ns > s.t0_ns for s in stages)
+    assert all(t.spans[s.parent].name == "PnP + guided"
+               for s in stages if s.name == "Gauss-Newton")
+    before = len(t.spans)
     vo.estimate(sequence[3])
-    assert ms == before
+    assert len(t.spans) == before
 
 
 def test_window_eviction(sequence):

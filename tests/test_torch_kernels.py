@@ -203,26 +203,37 @@ def test_ssd_search_cpu_runs_the_plain_version_uncounted():
     assert ssd_search.launches == before
 
 
+def off_the_grid(x):
+    """A copy of ``x`` whose storage starts 4 bytes past the 16-byte
+    grid."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    y.copy_(x.reshape(-1))
+    return y.view(x.shape)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["on", "off"])
 @pytest.mark.parametrize("S", [16, 48])
 @pytest.mark.parametrize("case", SSD_CASES + NAN_CASES)
-def test_ssd_kernel_bit_equal_to_plain(case, S):
-    """On the card: the CUDA kernel (both designs) against the plain
-    version on the same CUDA tensors, bit for bit with NaN in the same
-    places (NaN window errors placed by the Pallas kernel's rule), and
-    one launch counted per call."""
+def test_ssd_kernel_bit_equal_to_plain(case, S, grid):
+    """On the card: the CUDA kernel against the plain version on the same
+    CUDA tensors, bit for bit with NaN in the same places (NaN window
+    errors placed by the Pallas kernel's rule), and one launch counted
+    per call; with K off the 16-byte grid (``grid`` "off") the launcher
+    runs the first kernel, one thread a pixel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
     args = tensors(search_case(case, S), device="cuda")
+    if grid == "off":
+        args[1] = off_the_grid(args[1])
     ref = ssd_search_reference(*args)
-    for design in ("ring", "thread"):
-        before = ssd_search.launches
-        out = ssd_search(*args, design=design)
-        torch.cuda.synchronize()
-        assert ssd_search.launches == before + 1
-        for port, plain in zip(out, ref):
-            assert port.device.type == "cuda"
-            assert same_or_both_nan(port, plain), (design, case, S)
+    before = ssd_search.launches
+    out = ssd_search(*args)
+    torch.cuda.synchronize()
+    assert ssd_search.launches == before + 1
+    for port, plain in zip(out, ref):
+        assert port.device.type == "cuda"
+        assert same_or_both_nan(port, plain), (case, S, grid)
     if case in NAN_CASES:
         assert ref[1].isnan().any() or ref[3].isnan().any() or case in (
             "nan_first_in_bounds", "inf_sample")
@@ -253,16 +264,15 @@ def cuda_or_skip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [16, 48, 128])
+@pytest.mark.parametrize("S", [16, 48, 128, 256])
 @pytest.mark.parametrize("case", SSD_CASES + NAN_CASES)
 def test_probe_kernels_against_plain(case, S):
     """On the card: the copy floor bit-equal to its plain version in
-    every variant; every ssd_serial "thread" variant bit-equal to
-    ssd_search and to the plain version; ssd_par "slab" bit-equal to its
-    plain version; NaN in the same places throughout (each form by its
-    Pallas kernel's rule); one launch counted per call.  At S = 128
-    ssd_par's slab (63.5 KB) takes the launch path past the 48 KB
-    default of dynamic shared memory."""
+    every variant; ssd_serial in every block shape of its "thread"
+    kernel (which it runs at S = 256) bit-equal to ssd_search and to the
+    plain version; ssd_par bit-equal to its plain version; NaN in the
+    same places throughout (each form by its Pallas kernel's rule); one
+    launch counted per call."""
     cuda_or_skip()
     from tadataka_torch.probes import exp_ssd as probes
     arrays = search_case(case, S)
@@ -278,12 +288,12 @@ def test_probe_kernels_against_plain(case, S):
             args[0]))
     search = ssd_search(*args)
     for variant in probes.SERIAL_VARIANTS:
-        out = probes.ssd_serial(*args, *variant, design="thread")
+        out = probes.ssd_serial(*args, *variant)
         torch.cuda.synchronize()
         for a, b, c in zip(out, search, probes.ssd_serial_reference(*args)):
             assert same_or_both_nan(a, b) and same_or_both_nan(a, c)
     before = probes.ssd_par.launches
-    out = probes.ssd_par(*args, design="slab")
+    out = probes.ssd_par(*args)
     ref = probes.ssd_par_reference(*args)
     torch.cuda.synchronize()
     assert probes.ssd_par.launches == before + 1
@@ -293,19 +303,12 @@ def test_probe_kernels_against_plain(case, S):
 
 @pytest.mark.cuda
 def test_probe_kernels_refuse():
-    """On the card: ssd_par "slab" refuses an S whose error slab exceeds
-    a block's shared memory, the copy floor's float4 variant a W it
-    cannot tile and its bulk-copy variants an H * W that is not a
-    multiple of 4 (the copies need 16-byte aligned planes)."""
+    """On the card: the copy floor's float4 variant refuses a W it cannot
+    tile and its bulk-copy variants an H * W that is not a multiple of 4
+    (the copies need 16-byte aligned planes)."""
     cuda_or_skip()
     from tadataka_torch.probes import exp_ssd as probes
-    H, W = 4, 32
-    V = torch.rand((460, H, W), device="cuda")
-    K = torch.rand((5, H, W), device="cuda")
-    mlo = torch.zeros((H, W), device="cuda")
-    mhi = torch.full((H, W), 455.0, device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        probes.ssd_par(V, K, mlo, mhi, design="slab")
+    V = torch.rand((460, 4, 32), device="cuda")
     with pytest.raises(RuntimeError, match="launch failed"):
         probes.ssd_copy_floor(V[:, :, :30].contiguous(), ("threads", 4, 8))
     odd = torch.rand((8, 3, 31), device="cuda")
@@ -321,38 +324,34 @@ def test_probe_kernels_refuse():
 @pytest.mark.parametrize("S", [16, 48, 128, 256])
 @pytest.mark.parametrize("case", SSD_CASES + FILTER_CASES + NAN_CASES)
 def test_tile_designs_against_plain(case, S):
-    """On the card: both designs of ssd_serial bit-equal to both designs
-    of ssd_search, to the plain version and to its plain filter; both
-    designs of ssd_par bit-equal to their plain version; NaN in the same
-    places throughout, each form placing NaN errors by its own Pallas
-    kernel's rule (ssd_serial and ssd_search by _ssd_kernel's, ssd_par
-    by _par_kernel's); one launch counted per call in every design."""
+    """On the card: ssd_serial bit-equal to ssd_search, to the plain
+    version and to its plain filter; ssd_par bit-equal to its plain
+    version; NaN in the same places throughout, each form placing NaN
+    errors by its own Pallas kernel's rule (ssd_serial and ssd_search by
+    _ssd_kernel's, ssd_par by _par_kernel's); one launch counted per
+    call.  Both run "tile" but where it refuses the input: ssd_serial
+    runs "thread" at S = 256 and at 13 x 37 ("ragged_rows", H * W % 4
+    != 0), ssd_par "slab" at 13 x 37."""
     cuda_or_skip()
     from tadataka_torch.probes import exp_ssd as probes
-    arrays = search_case(case, S)
-    if case == "ragged_rows":       # 13 x 37: "tile" needs H * W % 4 == 0
-        arrays = tuple(a[..., :36] for a in arrays)
-    args = tensors(arrays, device="cuda")
-    thread = ssd_search(*args, design="thread")
-    ring = ssd_search(*args, design="ring")
+    args = tensors(search_case(case, S), device="cuda")
+    search = ssd_search(*args)
     plain = probes.ssd_serial_reference(*args)
     filtered, _ = probes.ssd_serial_filter_reference(*args)
-    for design in probes.SERIAL_DESIGNS:
-        before = probes.ssd_serial.launches
-        out = probes.ssd_serial(*args, design=design)
-        torch.cuda.synchronize()
-        assert probes.ssd_serial.launches == before + 1
-        for a, *others in zip(out, thread, ring, plain, filtered):
-            for b in others:
-                assert same_or_both_nan(a, b), (design, case, S)
+    before = probes.ssd_serial.launches
+    out = probes.ssd_serial(*args)
+    torch.cuda.synchronize()
+    assert probes.ssd_serial.launches == before + 1
+    for a, *others in zip(out, search, plain, filtered):
+        for b in others:
+            assert same_or_both_nan(a, b), (case, S)
     ref = probes.ssd_par_reference(*args)
-    for design in probes.PAR_DESIGNS:
-        before = probes.ssd_par.launches
-        out = probes.ssd_par(*args, design=design)
-        torch.cuda.synchronize()
-        assert probes.ssd_par.launches == before + 1
-        for a, b in zip(out, ref):
-            assert same_or_both_nan(a, b), (design, case, S)
+    before = probes.ssd_par.launches
+    out = probes.ssd_par(*args)
+    torch.cuda.synchronize()
+    assert probes.ssd_par.launches == before + 1
+    for a, b in zip(out, ref):
+        assert same_or_both_nan(a, b), (case, S)
     if case in ("nan_key", "nan_key_rows", "nan_key_sample"):
         assert torch.isnan(ref[1]).any() and torch.isnan(plain[3]).any()
 
@@ -370,8 +369,8 @@ def test_tile_rescore_counts():
     for case in ("planted", "ties", "nan_key"):
         args = tensors(ssd_case(case, 48), device="cuda")
         rescore = torch.zeros(3, dtype=torch.int64, device="cuda")
-        probes.ssd_serial(*args, design="tile", rescore=rescore)
-        probes.ssd_serial(*args, design="tile", rescore=rescore)
+        probes.ssd_serial(*args, rescore=rescore)
+        probes.ssd_serial(*args, rescore=rescore)
         n_exact, n_scan, n_sweep = rescore.tolist()
         _, plain = probes.ssd_serial_filter_reference(*args)
         assert (n_scan, n_sweep) == (2 * plain[1], 2 * plain[2]), case
@@ -383,34 +382,50 @@ def test_tile_rescore_counts():
 
 
 @pytest.mark.cuda
-def test_tile_designs_refuse():
-    """On the card: "tile" of both probes refuses H * W % 4 != 0 (a TMA
-    box reads whole 16-byte vectors), an S whose two tiles do not fit in
-    a block's shared memory even at 32 pixels a tile (S = 1000; 896
-    fits), and a tensor off the 16-byte grid; nothing is launched."""
+def test_probe_searches_fall_back_or_refuse():
+    """On the card: where "tile" refuses the input, ssd_serial runs
+    "thread" and ssd_par "slab", each bit-equal to its plain version:
+    H * W % 4 != 0 (a TMA box reads whole 16-byte vectors; 7 x 63) and,
+    for ssd_serial, S = 1000 (two tiles of S planes do not fit in a
+    block's shared memory even at 32 pixels a tile; 896 fits); ssd_par
+    runs "tile" at S = 460, past the slab's 458, where H * W % 4 == 0,
+    and raises where neither kernel takes the input (S = 1000, and S =
+    460 at 7 x 63); both raise on a tensor off the 16-byte grid, which
+    they launch nothing for."""
     cuda_or_skip()
     from tadataka_torch.probes import exp_ssd as probes
-    counts = [probes.ssd_serial.launches, probes.ssd_par.launches]
-    odd = tensors(ssd_case("planted", 16), device="cuda")
-    odd = [x[..., :7, :63].contiguous() for x in odd]       # 7 x 63
-    H, W = 4, 32
-    big = [torch.rand((1000, H, W), device="cuda"),
-           torch.rand((5, H, W), device="cuda"),
-           torch.zeros((H, W), device="cuda"),
-           torch.full((H, W), 995.0, device="cuda")]
+
+    def search(S, H, W):
+        return [torch.rand((S, H, W), device="cuda"),
+                torch.rand((5, H, W), device="cuda"),
+                torch.zeros((H, W), device="cuda"),
+                torch.full((H, W), S - 5.0, device="cuda")]
+
+    odd = [x[..., :7, :63].contiguous()
+           for x in tensors(ssd_case("planted", 16), device="cuda")]
+    big, wide, odd_wide = search(1000, 4, 32), search(460, 4, 32), search(
+        460, 7, 63)
     shifted = tensors(ssd_case("planted", 16), device="cuda")
-    V = torch.empty(shifted[0].numel() + 1, device="cuda")[1:]
-    V.copy_(shifted[0].reshape(-1))
-    shifted[0] = V.view(shifted[0].shape)
-    for fn in (probes.ssd_serial, probes.ssd_par):
-        with pytest.raises(ValueError, match="H \\* W % 4"):
-            fn(*odd, design="tile")
+    shifted[0] = off_the_grid(shifted[0])
+    counts = [probes.ssd_serial.launches, probes.ssd_par.launches]
+    for args in (odd, big):
+        assert all(same_or_both_nan(a, b) for a, b in zip(
+            probes.ssd_serial(*args), probes.ssd_serial_reference(*args)))
+    for args in (odd, wide):
+        assert all(same_or_both_nan(a, b) for a, b in zip(
+            probes.ssd_par(*args), probes.ssd_par_reference(*args)))
+    torch.cuda.synchronize()
+    assert [probes.ssd_serial.launches, probes.ssd_par.launches] == [
+        counts[0] + 2, counts[1] + 2]
+    for args in (big, odd_wide):
         with pytest.raises(ValueError, match="shared memory"):
-            fn(*big, design="tile")
+            probes.ssd_par(*args)
+    for fn in (probes.ssd_serial, probes.ssd_par):
         with pytest.raises(ValueError, match="16-byte"):
-            fn(*shifted, design="tile")
-    assert counts == [probes.ssd_serial.launches, probes.ssd_par.launches]
-    probes.tile_config(896, H, W, serial=True)
+            fn(*shifted)
+    assert [probes.ssd_serial.launches, probes.ssd_par.launches] == [
+        counts[0] + 2, counts[1] + 2]
+    probes.tile_config(896, 4, 32, serial=True)
 
 
 def test_copy_floor_variants_on_cpu():
@@ -567,23 +582,22 @@ def bounds_case(case, S, shape, seed):
 @pytest.mark.parametrize("shape", [(37, 41), (13, 38), (479, 641),
                                    (24, 40)])
 def test_ssd_designs_bit_equal_on_odd_shapes_and_bounds(shape, S, case):
-    """On the card: both designs of ssd_search bit-equal to the plain
-    version when H*W % 4 is 1, 2 or 3 and K and mlo start off the
-    16-byte grid ("ring" runs the thread kernel there), and at 24x40
-    (the ring's TMA boxes), with fewer planes than a stage holds (S =
-    5-9), on NaN, infinite, sentinel, fractional and crossed bounds,
-    tile-coherent narrow ranges and all-invalid tiles and ties; one
-    launch counted per call."""
+    """On the card: ssd_search bit-equal to the plain version when H*W %
+    4 is 1, 2 or 3 and K and mlo start off the 16-byte grid (the
+    launcher runs the thread kernel there), and at 24x40 (the ring's TMA
+    boxes), with fewer planes than a stage holds (S = 5-9), on NaN,
+    infinite, sentinel, fractional and crossed bounds, tile-coherent
+    narrow ranges and all-invalid tiles and ties; one launch counted per
+    call."""
     cuda_or_skip()
     args = bounds_case(case, S, shape, seed=S * 7 + shape[1])
     ref = ssd_search_reference(*args)
-    for design in ("ring", "thread"):
-        before = ssd_search.launches
-        out = ssd_search(*args, design=design)
-        torch.cuda.synchronize()
-        assert ssd_search.launches == before + 1
-        for port, plain in zip(out, ref):
-            assert torch.equal(port, plain), (design, shape, S, case)
+    before = ssd_search.launches
+    out = ssd_search(*args)
+    torch.cuda.synchronize()
+    assert ssd_search.launches == before + 1
+    for port, plain in zip(out, ref):
+        assert torch.equal(port, plain), (shape, S, case)
     if case in ("coherent", "invalid_ties"):
         assert (ref[0] >= 0).any()
     if case == "invalid_ties":
@@ -608,17 +622,6 @@ def test_ring_plan_takes_whole_vectors_only(shape, ring):
     assert plan["tiles"] == -(-H * W // plan["tile"])
     assert plan["blocks_per_sm"] <= ctas
     assert plan["grid"] <= plan["tiles"]
-
-
-@pytest.mark.cuda
-def test_ssd_search_rejects_an_unknown_design_on_the_card():
-    """On the card: an unknown design raises before any launch."""
-    cuda_or_skip()
-    args = bounds_case("coherent", 9, (13, 38), seed=1)
-    before = ssd_search.launches
-    with pytest.raises(ValueError, match="no design"):
-        ssd_search(*args, design="slab")
-    assert ssd_search.launches == before
 
 
 # ---------------------------------------- gather probes (benchmarks/*gather*)
@@ -671,45 +674,46 @@ def test_gather_probes_cpu_run_the_plain_versions_uncounted():
         g.flat_take(img2.to("meta"), idx.to("meta"))
 
 
-@pytest.mark.parametrize("design", ["strip", "thread"])
-def test_strip_designs_on_cpu(design):
-    """On CPU tensors take_along_axis0 and multi_warp return the plain
-    version's bits in each design, with planted edge indices, and count
-    no launch; an unknown design raises before any input check."""
+# an input whose column strip fits in a block's 227 KB ("strip") and one
+# whose strip does not, on which the card runs the first kernel
+STRIP_SHAPES = {"strip": (11, 37), "thread": (2000, 9)}
+
+
+@pytest.mark.parametrize("kernel", list(STRIP_SHAPES))
+def test_strip_designs_on_cpu(kernel):
+    """take_along_axis0 and multi_warp take no design (the card's
+    launchers pick the kernel from the input); on CPU tensors they return
+    the plain version's bits on an input of each kernel, with planted
+    edge indices, and count no launch."""
     from tadataka_torch.probes import gather as g
-    assert g.TAKE_ALONG_AXIS0_DESIGNS == g.MULTI_WARP_DESIGNS == (
-        "strip", "thread")
-    assert all(inspect.signature(fn).parameters["design"].default == "strip"
-               for fn in (g.take_along_axis0, g.multi_warp))
-    img, rows, cols = gather_case((11, 37))
+    assert list(inspect.signature(g.take_along_axis0).parameters) == [
+        "img", "idx"]
+    assert list(inspect.signature(g.multi_warp).parameters) == [
+        "img", "idxr", "idxc", "S"]
+    img, rows, cols = gather_case(STRIP_SHAPES[kernel])
     img = torch.from_numpy(img)
     rows, cols = torch.from_numpy(rows), torch.from_numpy(cols)
     counts = [g.take_along_axis0.launches, g.multi_warp.launches]
-    out = g.take_along_axis0(img, rows, design=design)
+    out = g.take_along_axis0(img, rows)
     ref = g.take_along_axis_reference(img, rows, 0)
     assert torch.isnan(ref).any() and g.same_bits(out, ref)
-    assert g.same_bits(g.multi_warp(img, rows, cols, 3, design=design),
+    assert g.same_bits(g.multi_warp(img, rows, cols, 3),
                        g.multi_warp_reference(img, rows, cols, 3))
     assert counts == [g.take_along_axis0.launches, g.multi_warp.launches]
-    with pytest.raises(ValueError, match="no design"):
-        g.take_along_axis0(img, rows, design=design + "s")
-    with pytest.raises(ValueError, match="no design"):
-        g.multi_warp(img, rows, cols.long(), design="tiles")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", ["strip", "thread"])
 @pytest.mark.parametrize("shape", [(480, 640), (479, 641), (5, 3),
                                    (300, 37), (300, 36)])
-def test_gather_kernels_bit_equal_to_plain(shape, design):
+def test_gather_kernels_bit_equal_to_plain(shape):
     """On the card: each of the five gather kernels against its plain
     version on the same CUDA tensors, bit for bit with NaN in the same
     places, on planted negative, out-of-range and edge indices, with odd
-    sizes (S = 20 index rows, N = H*W not a multiple of 2048), and
-    take_along_axis0 and multi_warp in ``design``: "strip" stages by
-    16-byte copies at 480x640 and 300x36 (a last strip of 4 columns) and
-    by plain loads at 479x641, 5x3 and 300x37 (H > 256, a last strip of
-    5 columns); one launch counted per call."""
+    sizes (S = 20 index rows, N = H*W not a multiple of 2048);
+    take_along_axis0 and multi_warp stage their strips by 16-byte copies
+    at 480x640 and 300x36 (a last strip of 4 columns) and by plain loads
+    at 479x641, 5x3 and 300x37 (H > 256, a last strip of 5 columns); one
+    launch counted per call."""
     cuda_or_skip()
     from tadataka_torch.probes import gather as g
     img, rows, cols = gather_case(shape)
@@ -719,11 +723,11 @@ def test_gather_kernels_bit_equal_to_plain(shape, design):
     flat_img = torch.tensor(flat_img, device="cuda")
     idx = torch.tensor(idx, device="cuda")
     calls = [
-        (lambda *a: g.take_along_axis0(*a, design=design), (img, rows),
+        (g.take_along_axis0, (img, rows),
          g.take_along_axis_reference(img, rows, 0)),
         (g.take_along_axis1, (img, cols),
          g.take_along_axis_reference(img, cols, 1)),
-        (lambda *a: g.multi_warp(*a, design=design), (img, rows, cols, 16),
+        (g.multi_warp, (img, rows, cols, 16),
          g.multi_warp_reference(img, rows, cols, 16)),
         (g.flat_take, (flat_img, idx), g.flat_take_reference(flat_img, idx)),
         (g.flat_take_rows, (flat_img, idx),
@@ -739,20 +743,25 @@ def test_gather_kernels_bit_equal_to_plain(shape, design):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", ["strip", "thread"])
-def test_strip_designs_take_a_tall_image(design):
-    """On the card: at H = 2000 the column strip (250 KB) does not fit in
-    a block's shared memory, and "strip" runs the "thread" kernel: both
-    designs bit-equal to the plain versions."""
+@pytest.mark.parametrize("shape", [STRIP_SHAPES["thread"], (1900, 640)])
+def test_strip_designs_take_a_tall_image(shape):
+    """On the card: at 2000 x 9 and 1900 x 640 the column strip does not
+    fit in a block's shared memory (multi_warp: 250 KB, 238 KB;
+    take_along_axis0 with its band of idx: 252 KB, 277 KB), and the
+    launchers run the first kernel: bit-equal to the plain versions, on
+    planted edge indices, one launch counted per call."""
     cuda_or_skip()
     from tadataka_torch.probes import gather as g
-    img, rows, cols = gather_case((2000, 9))
+    img, rows, cols = gather_case(shape)
     img = torch.tensor(img, device="cuda")
     rows, cols = tensors((rows, cols), device="cuda", dtype=torch.int32)
-    out = g.take_along_axis0(img, rows, design=design)
+    counts = [g.take_along_axis0.launches, g.multi_warp.launches]
+    out = g.take_along_axis0(img, rows)
     assert g.same_bits(out, g.take_along_axis_reference(img, rows, 0))
-    out = g.multi_warp(img, rows, cols, 4, design=design)
+    out = g.multi_warp(img, rows, cols, 4)
     assert g.same_bits(out, g.multi_warp_reference(img, rows, cols, 4))
+    assert [g.take_along_axis0.launches, g.multi_warp.launches] == [
+        counts[0] + 1, counts[1] + 1]
 
 
 @pytest.mark.cuda
@@ -768,18 +777,16 @@ def test_empty_launch_runs():
 
 
 def test_flat_take_rows_designs_on_cpu():
-    """On CPU tensors every flat_take_rows design returns the plain
-    version's bits and counts no launch; an unknown design raises."""
+    """flat_take_rows takes no design; on CPU tensors it returns the plain
+    version's bits and counts no launch."""
     from tadataka_torch.probes import gather as g
+    assert list(inspect.signature(g.flat_take_rows).parameters) == [
+        "img", "idx"]
     img, idx = (torch.from_numpy(x) for x in gather_case((5, 7), S=3))
     before = g.flat_take_rows.launches
-    for design in g.FLAT_TAKE_ROWS_DESIGNS:
-        assert g.same_bits(g.flat_take_rows(img, idx, design=design),
-                           g.flat_take_rows_reference(img, idx))
+    assert g.same_bits(g.flat_take_rows(img, idx),
+                       g.flat_take_rows_reference(img, idx))
     assert g.flat_take_rows.launches == before
-    assert g.FLAT_TAKE_ROWS_DEFAULT in g.FLAT_TAKE_ROWS_DESIGNS
-    with pytest.raises(ValueError, match="no design"):
-        g.flat_take_rows(img, idx, design="tiles")
 
 
 def test_row_and_band_designs_on_cpu():
@@ -867,10 +874,9 @@ def test_flat_take_band_bit_equal_to_plain(shape, S, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", ["stream", "cluster"])
 @pytest.mark.parametrize("S", [1, 7, 20])
 @pytest.mark.parametrize("N", [1001, 1002, 1003])
-def test_flat_take_rows_odd_sizes(N, S, design):
+def test_flat_take_rows_odd_sizes(N, S):
     """On the card: flat_take_rows bit-equal to its plain version, NaN in
     the same places, when S * N is not a multiple of 4 or 8 (row starts
     off the 16-byte grid, a scalar tail), on a 37x53 image with planted
@@ -881,7 +887,7 @@ def test_flat_take_rows_odd_sizes(N, S, design):
     img = torch.tensor(img, device="cuda")
     idx = torch.tensor(np.resize(idx, (S, N)), device="cuda")
     before = g.flat_take_rows.launches
-    out = g.flat_take_rows(img, idx, design=design)
+    out = g.flat_take_rows(img, idx)
     torch.cuda.synchronize()
     assert g.flat_take_rows.launches == before + 1
     ref = g.flat_take_rows_reference(img, idx)
@@ -890,17 +896,15 @@ def test_flat_take_rows_odd_sizes(N, S, design):
 
 
 @pytest.mark.cuda
-def test_flat_take_rows_cluster_refuses_a_large_image():
-    """On the card: the "cluster" design refuses an image that 8 blocks'
-    shared memory cannot hold; "stream" takes it."""
+def test_flat_take_rows_takes_a_large_image():
+    """On the card: flat_take_rows takes an image larger than the shared
+    memory of a cluster of 8 blocks (2 MB)."""
     cuda_or_skip()
     from tadataka_torch.probes import gather as g
     img = torch.rand((500, 1000), device="cuda")
     idx = torch.randint(0, img.numel(), (2, 1000), device="cuda",
                         dtype=torch.int32)
-    with pytest.raises(ValueError, match="does not fit"):
-        g.flat_take_rows(img, idx, design="cluster")
-    assert g.same_bits(g.flat_take_rows(img, idx, design="stream"),
+    assert g.same_bits(g.flat_take_rows(img, idx),
                        g.flat_take_rows_reference(img, idx))
 
 

@@ -11,6 +11,8 @@ not change, bit for bit, when every other plane is overwritten.
 Inputs come from seeded numpy generators.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -140,17 +142,16 @@ def test_outputs_depend_only_on_planes_in_bounds(S, fill):
 
 
 def test_ssd_search_designs_on_cpu():
-    """On CPU tensors every design returns the plain version's bits and
-    counts no launch; an unknown design raises, on any device."""
+    """ssd_search takes no design (its launcher picks the kernel from the
+    input); on CPU tensors it returns the plain version's bits and counts
+    no launch."""
+    assert list(inspect.signature(ssd_search).parameters) == [
+        "V", "K", "mlo", "mhi"]
     V, K, mlo, mhi = (torch.from_numpy(a) for a in search_case(9, seed=3))
     before = ssd_search.launches
     ref = ssd_search_reference(V, K, mlo, mhi)
-    for design in ("ring", "thread"):
-        for out, plain in zip(ssd_search(V, K, mlo, mhi, design=design), ref):
-            assert torch.equal(out, plain)
+    for out, plain in zip(ssd_search(V, K, mlo, mhi), ref):
+        assert torch.equal(out, plain)
     assert ssd_search.launches == before
-    with pytest.raises(ValueError, match="no design"):
-        ssd_search(V, K, mlo, mhi, design="tiles")
-    with pytest.raises(ValueError, match="no design"):
-        ssd_search(V.to("meta"), K.to("meta"), mlo.to("meta"),
-                   mhi.to("meta"), design="slab")
+    with pytest.raises(TypeError):
+        ssd_search(V, K, mlo, mhi, design="thread")

@@ -1,4 +1,4 @@
-"""The candidate filter of ``ssd_serial``'s "tile" design in plain
+"""The candidate filter of ``ssd_serial``'s "tile" kernel in plain
 PyTorch (``tadataka_torch/probes/exp_ssd.py``), on the CPU.
 
 The kernel scores every window approximately, re-scores exactly only
@@ -13,6 +13,7 @@ with the card's error of at most 2^-20 and no division).  The card tests
 this plain version and to ``ssd_search``.
 """
 
+import inspect
 import re
 from pathlib import Path
 
@@ -150,40 +151,37 @@ def test_delta_is_the_kernels():
 
 
 def test_tile_designs_on_cpu():
-    """On CPU tensors ssd_serial "tile" runs the plain filter and ssd_par
-    "tile" the plain two-pass search (a pixel with a NaN error gets
-    ``_par_kernel``'s bm = M and ec = NaN); neither counts a launch, ``rescore`` gains the
-    filter's counts, and unknown designs, a bad ``rescore`` (or one
-    given to "thread") and a shape "tile" refuses raise; ssd_serial's
-    default design follows S ("tile" up to SERIAL_TILE_MAX_S, "thread"
-    above); the census counts what the filter does."""
+    """Neither ssd_serial nor ssd_par takes a design.  On CPU tensors
+    ssd_serial runs the plain filter where the card runs "tile" (S up to
+    SERIAL_TILE_MAX_S, H * W % 4 == 0) and ssd_search_reference where it
+    runs "thread", and ssd_par the plain two-pass search (a pixel with a
+    NaN error gets ``_par_kernel``'s bm = M and ec = NaN); neither counts
+    a launch, ``rescore`` gains the filter's counts, and a bad
+    ``rescore`` (or one given where "thread" runs) and a shape "tile"
+    refuses raise; the census counts what the filter does."""
+    for fn in (probes.ssd_serial, probes.ssd_par):
+        assert "design" not in inspect.signature(fn).parameters
     args = tensors(ssd_case("nan_key", 16))
     counts = [probes.ssd_serial.launches, probes.ssd_par.launches]
     rescore = torch.zeros(3, dtype=torch.int64)
-    out = probes.ssd_serial(*args, design="tile", rescore=rescore)
+    out = probes.ssd_serial(*args, rescore=rescore)
     plain, n = probes.ssd_serial_filter_reference(*args)
     assert_same(out, plain)
     assert rescore.tolist() == list(n)
-    assert_same(probes.ssd_par(*args, design="tile"),
-                probes.ssd_par_reference(*args))
+    par = probes.ssd_par(*args)
+    assert_same(par, probes.ssd_par_reference(*args))
     nan = torch.isnan(args[1]).any(0)
-    par = probes.ssd_par(*args, design="tile")
     assert torch.isnan(par[1][nan]).all() and (par[0][nan] == 12).all()
     assert counts == [probes.ssd_serial.launches, probes.ssd_par.launches]
     assert [probes.serial_design(S) for S in (
         5, probes.SERIAL_TILE_MAX_S, probes.SERIAL_TILE_MAX_S + 1)] == [
             "tile", "tile", "thread"]
-    rescore.zero_()
-    assert_same(probes.ssd_serial(*args, rescore=rescore), plain)
-    assert rescore.tolist() == list(n)
+    odd = [x[..., :7, :63].contiguous() for x in args]   # H * W % 4 == 1
+    assert_same(probes.ssd_serial(*odd), ssd_search_reference(*odd))
     with pytest.raises(ValueError, match="rescore"):
-        probes.ssd_serial(*args, design="thread", rescore=rescore)
-    with pytest.raises(ValueError, match="no design"):
-        probes.ssd_serial(*args, design="ring")
-    with pytest.raises(ValueError, match="no design"):
-        probes.ssd_par(*args, design="thread")
+        probes.ssd_serial(*odd, rescore=rescore)
     with pytest.raises(ValueError, match="rescore"):
-        probes.ssd_serial(*args, design="tile", rescore=rescore.int())
+        probes.ssd_serial(*args, rescore=rescore.int())
     with pytest.raises(ValueError, match="H \\* W % 4"):
         probes.tile_config(16, 13, 37, serial=True)
     census = probes.filter_census(*args)

@@ -8,7 +8,7 @@ The two Pallas kernels place a NaN error differently:
   has the same body) keeps its running minimum with ``jnp.minimum``,
   which turns NaN at the first NaN error, so no later window becomes the
   best; a pixel with no best keeps en = window 0's error.  ``ssd_search``
-  and ``ssd_serial`` (both designs) follow it.
+  and ``ssd_serial`` (both kernels) follow it.
 - ``_par_kernel`` (benchmarks/exp_ssd.py) takes the minimum over all
   windows, NaN as soon as one error is NaN; no window equals it, so the
   pixel gets bm = M, ec = NaN, ep = the last window's error, en = 3e38.
@@ -136,18 +136,18 @@ def tensors(case):
 
 @pytest.mark.parametrize("case", NAN_CASES)
 def test_serial_forms_follow_ssd_kernel(case):
-    """ssd_search on the CPU, ssd_serial_reference and both designs of
-    ssd_serial on the CPU (the "tile" one the plain candidate filter)
-    give ``_ssd_kernel``'s bits; the case holds NaN errors where it says
-    and pixels with a best."""
+    """ssd_search on the CPU, ssd_serial_reference, the plain candidate
+    filter of ssd_serial's "tile" kernel and ssd_serial on the CPU give
+    ``_ssd_kernel``'s bits; the case holds NaN errors where it says and
+    pixels with a best."""
     pallas = pallas_outputs()["ssd"][case]
     args = tensors(case)
     assert_same_bits(ssd_search(*args), pallas, "ssd_search")
     assert_same_bits(probes.ssd_serial_reference(*args), pallas,
                      "ssd_serial_reference")
-    for design in probes.SERIAL_DESIGNS:
-        assert_same_bits(probes.ssd_serial(*args, design=design), pallas,
-                         f"ssd_serial {design}")
+    assert_same_bits(probes.ssd_serial_filter_reference(*args)[0], pallas,
+                     "ssd_serial_filter_reference")
+    assert_same_bits(probes.ssd_serial(*args), pallas, "ssd_serial")
     assert (pallas[0] >= 0).any()
     if case in ("nan_after_best", "nan_window0", "nan_key_rows",
                 "overflow"):
@@ -158,16 +158,14 @@ def test_serial_forms_follow_ssd_kernel(case):
 
 @pytest.mark.parametrize("case", NAN_CASES)
 def test_par_follows_par_kernel(case):
-    """ssd_par_reference and ssd_par (both designs) on the CPU give
+    """ssd_par_reference and ssd_par on the CPU give
     ``_par_kernel``'s bits: bm = M, ec NaN, ep the last window's error
     and en 3e38 on every pixel with a NaN error."""
     pallas = pallas_outputs()["par"][case]
     args = tensors(case)
     assert_same_bits(probes.ssd_par_reference(*args), pallas,
                      "ssd_par_reference")
-    for design in probes.PAR_DESIGNS:
-        assert_same_bits(probes.ssd_par(*args, design=design), pallas,
-                         f"ssd_par {design}")
+    assert_same_bits(probes.ssd_par(*args), pallas, "ssd_par")
     nan = np.isnan(pallas[1])
     assert nan.any() and (pallas[0][nan] == M).all()
     assert (pallas[3][nan] == np.float32(3e38)).all()

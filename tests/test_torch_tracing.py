@@ -8,7 +8,6 @@ annotation."""
 import contextlib
 import itertools
 import json
-import time
 import tracemalloc
 
 import numpy as np
@@ -18,8 +17,7 @@ import torch
 import tadataka_torch.vo.dvo as dvo
 from tadataka_torch.core.pose import Pose
 from tadataka_torch.utils import timing
-from tadataka_torch.utils.timing import (
-    count, record, span, stage, sync_point, trace)
+from tadataka_torch.utils.timing import count, span, sync_point, trace
 
 N_LEVELS = 3
 
@@ -81,14 +79,14 @@ def ancestors(spans, i):
 def test_closed_marks_are_one_shared_noop():
     assert timing._trace is None
     assert span("a") is span("b", frame=3, level=1) is timing._NOOP
-    assert sync_point("sync.a") is stage("a", "cpu") is timing._NOOP
+    assert sync_point("sync.a") is timing._NOOP
     assert count("a") is None
 
     def marks():
         for _ in itertools.repeat(None, 1000):
             with span("dvo.level", level=2), span("dvo.gn_iter"):
                 count("dvo.gn_iter")
-                with sync_point("sync.dvo.sums"), stage("extract", "cpu"):
+                with sync_point("sync.dvo.sums"), span("extract"):
                     pass
 
     noop = timing._NOOP
@@ -249,20 +247,6 @@ def test_spans_are_profiler_annotations(tmp_path):
                    if e.get("cat") == "user_annotation"
                    and e.get("name") in ours)
     assert [n for _, _, n in notes] == [s.name for s in t.spans]
-
-
-def test_record_times_stages_only():
-    """``record()`` still hands back {stage: ms}; its stages synchronize
-    and add up, its spans are kept but fill no entry."""
-    with record() as ms:
-        for _ in range(2):
-            with stage("sleep", "cpu"):
-                time.sleep(0.002)
-        with span("not.a.stage"):
-            pass
-    assert set(ms) == {"sleep"}
-    assert ms["sleep"] >= 4.0
-    assert timing._trace is None
 
 
 def test_profile_trace_exports_the_programs_spans(tmp_path):

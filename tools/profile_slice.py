@@ -21,7 +21,7 @@ Prints, per profiled frame: the wall time, the device-busy time (the
 union of kernel intervals), the kernels launched and the DVO
 Gauss-Newton iterations (``aten::linalg_solve`` calls); then the
 kernels that took the most device time.  The profiler slows the host,
-so its wall times are longer than chip_smoke's.
+so its wall times are longer than an unprofiled run's.
 """
 
 import argparse
@@ -38,17 +38,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
+from bench_port.harness.trace import union_length as busy_us  # noqa: E402
 from tadataka_torch.dataset import multi_plane_scene  # noqa: E402
-
-
-def busy_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
 
 
 def main():
